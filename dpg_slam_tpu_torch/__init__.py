@@ -1,0 +1,50 @@
+"""dpg_slam_tpu_torch — the PyTorch/CUDA port of dpg_slam_tpu.
+
+The JAX package (dpg_slam_tpu/) is the reference; this package mirrors its
+module layout so each module's counterpart is found by path:
+
+  config     — the same frozen dataclass tree (JSON-compatible)
+  geom       — SE(2) math on tensors
+  scan       — scan data model
+  ops.icp    — batched point-to-line ICP (plain PyTorch) + covariance;
+               on a CUDA tensor it launches the hand-written kernel in
+               ops.icp_cuda (csrc/icp_kernel.cu)
+  graph      — factor-graph LM solver
+  engine     — online SLAM session engine (keyframe path + pass-boundary
+               reoptimize; DPG change detection is not ported yet)
+  utils      — checkpoint loading (reads the JAX package's npz), metrics
+  io         — synthetic worlds and sequences
+
+Rules: the package imports torch and numpy, never jax or dpg_slam_tpu.
+Every tensor lives on a device the caller chose; nothing picks one.
+"""
+
+import torch as _torch
+
+# Geometry needs real f32 products: the JAX package forces
+# jax_default_matmul_precision="highest" because bf16 rounding of ICP
+# distances and normal equations gave 5.5 m office ATE against 0.10 m.
+# TF32 keeps ~10 mantissa bits, so both TF32 switches go off here.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from dpg_slam_tpu_torch.config import (  # noqa: E402
+    DpgConfig,
+    DpgParams,
+    PoseGraphParams,
+    ScanParams,
+    VisualizationParams,
+)
+from dpg_slam_tpu_torch import geom, scan  # noqa: E402
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "DpgConfig",
+    "DpgParams",
+    "PoseGraphParams",
+    "ScanParams",
+    "VisualizationParams",
+    "geom",
+    "scan",
+]

@@ -1,0 +1,500 @@
+"""SE(2) pose-graph optimization on tensors — the port of
+dpg_slam_tpu/graph/factor_graph.py.
+
+A FactorGraph is a NamedTuple of fixed-capacity factor tensors plus live
+counts (0-dim int32 tensors); slots at or beyond a count are masked out.
+Normal equations are assembled in block form with ``index_add_`` (the JAX
+package's one-hot contractions stand in for scatters on the TPU; the
+semantics are the same). The LM solver is a Python loop that reads its
+accept/stop decisions on the host.
+
+Not ported here: ``method="dense_pallas"`` (it needs the SPD kernel K2)
+and ``solve_batched`` (it waits for batch.py) — see ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from dpg_slam_tpu_torch import geom
+
+__all__ = [
+    "FactorGraph",
+    "SolveStats",
+    "empty_graph",
+    "sqrt_info_from_sigmas",
+    "sqrt_info_from_covariance",
+    "add_prior",
+    "add_between",
+    "add_between_batch",
+    "residuals",
+    "total_error",
+    "solve",
+]
+
+
+class FactorGraph(NamedTuple):
+    """Fixed-capacity factor tensors; node poses live outside the graph."""
+
+    prior_idx: torch.Tensor        # (P,) int32 node index
+    prior_val: torch.Tensor        # (P, 3) prior pose
+    prior_sqrt_info: torch.Tensor  # (P, 3, 3) whitening matrix
+    num_priors: torch.Tensor       # () int32
+    edge_idx: torch.Tensor         # (E, 2) int32 [from, to]
+    edge_meas: torch.Tensor        # (E, 3) measured pose of `to` in `from`'s frame
+    edge_sqrt_info: torch.Tensor   # (E, 3, 3)
+    num_edges: torch.Tensor        # () int32
+
+    @property
+    def prior_mask(self) -> torch.Tensor:
+        return torch.arange(self.prior_idx.shape[0], device=self.prior_idx.device) < self.num_priors
+
+    @property
+    def edge_mask(self) -> torch.Tensor:
+        return torch.arange(self.edge_idx.shape[0], device=self.edge_idx.device) < self.num_edges
+
+
+class SolveStats(NamedTuple):
+    initial_error: torch.Tensor  # ()
+    final_error: torch.Tensor    # ()
+    iterations: int              # accepted LM steps
+
+
+def empty_graph(max_priors: int, max_edges: int, device) -> FactorGraph:
+    f32, i32 = torch.float32, torch.int32
+    return FactorGraph(
+        prior_idx=torch.zeros((max_priors,), dtype=i32, device=device),
+        prior_val=torch.zeros((max_priors, 3), dtype=f32, device=device),
+        prior_sqrt_info=torch.zeros((max_priors, 3, 3), dtype=f32, device=device),
+        num_priors=torch.zeros((), dtype=i32, device=device),
+        edge_idx=torch.zeros((max_edges, 2), dtype=i32, device=device),
+        edge_meas=torch.zeros((max_edges, 3), dtype=f32, device=device),
+        edge_sqrt_info=torch.zeros((max_edges, 3, 3), dtype=f32, device=device),
+        num_edges=torch.zeros((), dtype=i32, device=device),
+    )
+
+
+def sqrt_info_from_sigmas(sigmas: torch.Tensor) -> torch.Tensor:
+    """Diagonal sqrt-information from (..., 3) standard deviations."""
+    return torch.diag_embed(1.0 / sigmas)
+
+
+def sqrt_info_from_covariance(cov: torch.Tensor) -> torch.Tensor:
+    """Whitening R = L^-1 with R^T R = cov^-1, closed form for (..., 3, 3)
+    SE(2) covariances (noiseModel::Gaussian::Covariance analog)."""
+    a11 = torch.clamp(cov[..., 0, 0], min=1e-18)
+    a21 = cov[..., 1, 0]
+    a31 = cov[..., 2, 0]
+    a22 = cov[..., 1, 1]
+    a32 = cov[..., 2, 1]
+    a33 = cov[..., 2, 2]
+    l11 = torch.sqrt(a11)
+    l21 = a21 / l11
+    l31 = a31 / l11
+    l22 = torch.sqrt(torch.clamp(a22 - l21 * l21, min=1e-18))
+    l32 = (a32 - l31 * l21) / l22
+    l33 = torch.sqrt(torch.clamp(a33 - l31 * l31 - l32 * l32, min=1e-18))
+    m11 = 1.0 / l11
+    m22 = 1.0 / l22
+    m33 = 1.0 / l33
+    m21 = -l21 * m11 * m22
+    m31 = (l21 * l32 - l22 * l31) * m11 * m22 * m33
+    m32 = -l32 * m22 * m33
+    zero = torch.zeros_like(m11)
+    return torch.stack(
+        [
+            torch.stack([m11, zero, zero], dim=-1),
+            torch.stack([m21, m22, zero], dim=-1),
+            torch.stack([m31, m32, m33], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def _set_rows(t: torch.Tensor, rows: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    out = t.clone()
+    out[rows] = values.to(t.dtype)
+    return out
+
+
+def add_prior(g: FactorGraph, node: int, value: torch.Tensor, sqrt_info: torch.Tensor) -> FactorGraph:
+    """Append a prior factor (capacity is checked by the caller)."""
+    i = g.num_priors.long()
+    return g._replace(
+        prior_idx=_set_rows(g.prior_idx, i, torch.as_tensor(node, device=i.device)),
+        prior_val=_set_rows(g.prior_val, i, value),
+        prior_sqrt_info=_set_rows(g.prior_sqrt_info, i, sqrt_info),
+        num_priors=g.num_priors + 1,
+    )
+
+
+def add_between_batch(
+    g: FactorGraph,
+    from_idx: torch.Tensor,   # (M,)
+    to_idx: torch.Tensor,     # (M,)
+    meas: torch.Tensor,       # (M, 3)
+    sqrt_info: torch.Tensor,  # (M, 3, 3)
+    valid: torch.Tensor,      # (M,) bool — invalid rows consume no slot
+) -> FactorGraph:
+    """Append M between factors, packed into consecutive slots in row
+    order (the same packing as M sequential add_between calls). Rows that
+    would land beyond capacity are dropped, as XLA's mode="drop"
+    scatter drops them; the count still grows by the number of valid rows."""
+    vi = valid.to(torch.int32)
+    slots = g.num_edges + torch.cumsum(vi, 0) - vi
+    keep = valid & (slots < g.edge_idx.shape[0])
+    rows = slots[keep].long()
+    pair = torch.stack([from_idx, to_idx], dim=-1)
+    return g._replace(
+        edge_idx=_set_rows(g.edge_idx, rows, pair[keep]),
+        edge_meas=_set_rows(g.edge_meas, rows, meas[keep]),
+        edge_sqrt_info=_set_rows(g.edge_sqrt_info, rows, sqrt_info[keep]),
+        num_edges=g.num_edges + vi.sum().to(torch.int32),
+    )
+
+
+def add_between(
+    g: FactorGraph, from_node: int, to_node: int, meas: torch.Tensor,
+    sqrt_info: torch.Tensor, valid: bool = True,
+) -> FactorGraph:
+    """Append one between factor; with ``valid=False`` no slot is used."""
+    if not valid:
+        return g
+    dev = g.edge_idx.device
+    return add_between_batch(
+        g,
+        torch.tensor([from_node], dtype=torch.int32, device=dev),
+        torch.tensor([to_node], dtype=torch.int32, device=dev),
+        meas[None],
+        sqrt_info[None],
+        torch.ones((1,), dtype=torch.bool, device=dev),
+    )
+
+
+# --------------------------------------------------------------------------
+# Residuals and Jacobians
+# --------------------------------------------------------------------------
+
+def _masked_index(idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Indices with masked slots sent to node 0 (their contributions are
+    exact zeros), so stale slot contents can never index out of range."""
+    return torch.where(mask, idx, 0).long()
+
+
+def _between_residual_jac(poses: torch.Tensor, g: FactorGraph):
+    """Whitened residuals and Jacobians of all between factors:
+    r = between(x_i, x_j) - meas (angle wrapped); (E, 3), (E, 3, 3) x 2."""
+    emask = g.edge_mask
+    xi = poses[_masked_index(g.edge_idx[:, 0], emask)]
+    xj = poses[_masked_index(g.edge_idx[:, 1], emask)]
+    c = torch.cos(xi[:, 2])
+    s = torch.sin(xi[:, 2])
+    dx = xj[:, 0] - xi[:, 0]
+    dy = xj[:, 1] - xi[:, 1]
+    px = c * dx + s * dy
+    py = -s * dx + c * dy
+    pth = geom.wrap_angle(xj[:, 2] - xi[:, 2])
+    r = torch.stack([px, py, pth], dim=-1) - g.edge_meas
+    r = torch.cat([r[:, :2], geom.wrap_angle(r[:, 2:3])], dim=-1)
+
+    zeros = torch.zeros_like(c)
+    ones = torch.ones_like(c)
+    Ji = torch.stack(
+        [
+            torch.stack([-c, -s, -s * dx + c * dy], dim=-1),
+            torch.stack([s, -c, -c * dx - s * dy], dim=-1),
+            torch.stack([zeros, zeros, -ones], dim=-1),
+        ],
+        dim=-2,
+    )
+    Jj = torch.stack(
+        [
+            torch.stack([c, s, zeros], dim=-1),
+            torch.stack([-s, c, zeros], dim=-1),
+            torch.stack([zeros, zeros, ones], dim=-1),
+        ],
+        dim=-2,
+    )
+    W = g.edge_sqrt_info
+    return (
+        torch.einsum("eab,eb->ea", W, r),
+        torch.einsum("eab,ebc->eac", W, Ji),
+        torch.einsum("eab,ebc->eac", W, Jj),
+    )
+
+
+def _prior_residual_jac(poses: torch.Tensor, g: FactorGraph):
+    """Whitened residual and Jacobian of the priors: r = x - prior."""
+    r = poses[_masked_index(g.prior_idx, g.prior_mask)] - g.prior_val
+    r = torch.cat([r[:, :2], geom.wrap_angle(r[:, 2:3])], dim=-1)
+    W = g.prior_sqrt_info
+    return torch.einsum("pab,pb->pa", W, r), W
+
+
+def residuals(poses: torch.Tensor, g: FactorGraph) -> torch.Tensor:
+    """All whitened residuals stacked: (P*3 + E*3,), masked slots zero."""
+    pr, _ = _prior_residual_jac(poses, g)
+    er, _, _ = _between_residual_jac(poses, g)
+    pr = torch.where(g.prior_mask[:, None], pr, 0.0)
+    er = torch.where(g.edge_mask[:, None], er, 0.0)
+    return torch.cat([pr.reshape(-1), er.reshape(-1)])
+
+
+def _huber_weight(r: torch.Tensor, delta: float) -> torch.Tensor:
+    """IRLS weight per factor: 1 inside the delta band, delta/||r|| out."""
+    nrm = torch.linalg.norm(r, dim=-1)
+    return torch.where(nrm <= delta, 1.0, delta / torch.clamp(nrm, min=1e-12))
+
+
+def _huber_loss(r: torch.Tensor, delta: float) -> torch.Tensor:
+    nrm = torch.linalg.norm(r, dim=-1)
+    quad = 0.5 * nrm * nrm
+    lin = delta * nrm - 0.5 * delta * delta
+    return torch.sum(torch.where(nrm <= delta, quad, lin))
+
+
+def _error_from_residuals(pr, er, robust_delta):
+    prior_err = 0.5 * torch.sum(pr * pr)
+    if robust_delta is None:
+        return prior_err + 0.5 * torch.sum(er * er)
+    return prior_err + _huber_loss(er, robust_delta)
+
+
+def total_error(poses: torch.Tensor, g: FactorGraph, robust_delta: float | None = None) -> torch.Tensor:
+    """Total graph error; Huber on between factors when robust_delta is set."""
+    pr, _ = _prior_residual_jac(poses, g)
+    er, _, _ = _between_residual_jac(poses, g)
+    pr = torch.where(g.prior_mask[:, None], pr, 0.0)
+    er = torch.where(g.edge_mask[:, None], er, 0.0)
+    return _error_from_residuals(pr, er, robust_delta)
+
+
+# --------------------------------------------------------------------------
+# Normal equations
+# --------------------------------------------------------------------------
+
+class _NormalEq(NamedTuple):
+    diag: torch.Tensor  # (N, 3, 3) diagonal blocks of H
+    off: torch.Tensor   # (E, 3, 3) off-diagonal block (i, j) per edge
+    rhs: torch.Tensor   # (N, 3) gradient J^T r
+
+
+def _assemble(
+    poses: torch.Tensor, g: FactorGraph, node_mask: torch.Tensor,
+    robust_delta: float | None = None,
+) -> tuple[_NormalEq, torch.Tensor]:
+    """Normal equations and the total (robust) error in one residual sweep."""
+    N = poses.shape[0]
+    pr, pJ = _prior_residual_jac(poses, g)
+    er, Ji, Jj = _between_residual_jac(poses, g)
+    pmask, emask = g.prior_mask, g.edge_mask
+    pm = pmask.to(poses.dtype)
+    em = emask.to(poses.dtype)
+
+    err = _error_from_residuals(pr * pm[:, None], er * em[:, None], robust_delta)
+
+    if robust_delta is not None:
+        # IRLS: sqrt(huber weight) scales each between-factor's rows.
+        em = em * torch.sqrt(_huber_weight(er, robust_delta))
+    pJ = pJ * pm[:, None, None]
+    pr = pr * pm[:, None]
+    Ji = Ji * em[:, None, None]
+    Jj = Jj * em[:, None, None]
+    er = er * em[:, None]
+
+    p_idx = _masked_index(g.prior_idx, pmask)
+    i_idx = _masked_index(g.edge_idx[:, 0], emask)
+    j_idx = _masked_index(g.edge_idx[:, 1], emask)
+    diag = torch.zeros((N, 3, 3), dtype=poses.dtype, device=poses.device)
+    diag.index_add_(0, p_idx, pJ.transpose(-1, -2) @ pJ)
+    diag.index_add_(0, i_idx, Ji.transpose(-1, -2) @ Ji)
+    diag.index_add_(0, j_idx, Jj.transpose(-1, -2) @ Jj)
+    off = Ji.transpose(-1, -2) @ Jj
+    rhs = torch.zeros((N, 3), dtype=poses.dtype, device=poses.device)
+    rhs.index_add_(0, p_idx, torch.einsum("pba,pb->pa", pJ, pr))
+    rhs.index_add_(0, i_idx, torch.einsum("eba,eb->ea", Ji, er))
+    rhs.index_add_(0, j_idx, torch.einsum("eba,eb->ea", Jj, er))
+
+    # Inactive node slots: identity diagonal, zero gradient -> zero update.
+    eye = torch.eye(3, dtype=poses.dtype, device=poses.device)
+    diag = torch.where(node_mask[:, None, None], diag, eye)
+    rhs = torch.where(node_mask[:, None], rhs, 0.0)
+    return _NormalEq(diag, off, rhs), err
+
+
+def _matvec(eq: _NormalEq, g: FactorGraph, v: torch.Tensor) -> torch.Tensor:
+    """H v from the block form — O(E), no dense H."""
+    emask = g.edge_mask
+    i_idx = _masked_index(g.edge_idx[:, 0], emask)
+    j_idx = _masked_index(g.edge_idx[:, 1], emask)
+    em = emask.to(v.dtype)[:, None]
+    out = torch.einsum("nab,nb->na", eq.diag, v)
+    out = out.index_add(0, i_idx, em * torch.einsum("eab,eb->ea", eq.off, v[j_idx]))
+    return out.index_add(0, j_idx, em * torch.einsum("eba,eb->ea", eq.off, v[i_idx]))
+
+
+def _dense_H(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor) -> torch.Tensor:
+    """The damped (3N, 3N) normal matrix, blocks added at their flat
+    (row * N + col) block index with index_add_ (an accumulating
+    index_put_ sorts its indices and cost ~0.7 ms a call at 4096 edges on
+    an H100)."""
+    N = eq.diag.shape[0]
+    dev = eq.diag.device
+    emask = g.edge_mask
+    i_idx = _masked_index(g.edge_idx[:, 0], emask)
+    j_idx = _masked_index(g.edge_idx[:, 1], emask)
+    offm = emask.to(eq.diag.dtype)[:, None, None] * eq.off
+    eye = torch.eye(3, dtype=eq.diag.dtype, device=dev)
+    H = torch.zeros((N * N, 3, 3), dtype=eq.diag.dtype, device=dev)
+    H.index_add_(0, torch.arange(N, device=dev) * (N + 1), eq.diag + damping * eye)
+    H.index_add_(0, i_idx * N + j_idx, offm)
+    H.index_add_(0, j_idx * N + i_idx, offm.transpose(-1, -2))
+    return H.view(N, N, 3, 3).permute(0, 2, 1, 3).reshape(3 * N, 3 * N)
+
+
+def _dense_solve(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor) -> torch.Tensor:
+    """Cholesky solve of the dense damped system. A failed factorization
+    yields NaN (as XLA's cho_factor does), which the LM loop rejects."""
+    N = eq.diag.shape[0]
+    L, info = torch.linalg.cholesky_ex(_dense_H(eq, g, damping))
+    delta = torch.cholesky_solve(eq.rhs.reshape(3 * N, 1), L)[:, 0]
+    delta = torch.where(info == 0, delta, float("nan"))
+    return delta.reshape(N, 3)
+
+
+def _dense_cg_solve(
+    eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, iters: int, rel_tol: float = 1e-6,
+) -> torch.Tensor:
+    """Block-Jacobi preconditioned CG with a dense (3N, 3N) matvec and a
+    residual-norm stop."""
+    Hf = _dense_H(eq, g, damping)
+    eye = torch.eye(3, dtype=eq.diag.dtype, device=eq.diag.device)
+    Minv = geom.inv_sym3(eq.diag + damping * eye)
+
+    def precond(v):
+        return torch.einsum("nab,nb->na", Minv, v.reshape(-1, 3)).reshape(-1)
+
+    b = eq.rhs.reshape(-1)
+    b2 = torch.sum(b * b)
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    p = z
+    rz = torch.sum(r * z)
+    it = 0
+    while it < iters and bool(torch.sum(r * r) > rel_tol * rel_tol * b2):
+        Ap = Hf @ p
+        denom = torch.sum(p * Ap)
+        alpha = torch.where(denom > 1e-20, rz / denom, 0.0)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.sum(r * z)
+        beta = torch.where(rz > 1e-20, rz_new / rz, 0.0)
+        p = z + beta * p
+        rz = rz_new
+        it += 1
+    return x.reshape(-1, 3)
+
+
+def _cg_solve(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, iters: int) -> torch.Tensor:
+    """Block-Jacobi preconditioned CG on the block-sparse system, a fixed
+    number of iterations."""
+    eye = torch.eye(3, dtype=eq.diag.dtype, device=eq.diag.device)
+    diag_d = eq.diag + damping * eye
+    eqd = _NormalEq(diag_d, eq.off, eq.rhs)
+    Minv = geom.inv_sym3(diag_d)
+
+    def precond(v):
+        return torch.einsum("nab,nb->na", Minv, v)
+
+    b = eq.rhs
+    x = torch.zeros_like(b)
+    r = b - _matvec(eqd, g, x)
+    z = precond(r)
+    p = z
+    rz = torch.sum(r * z)
+    for _ in range(iters):
+        Ap = _matvec(eqd, g, p)
+        denom = torch.sum(p * Ap)
+        alpha = torch.where(denom > 1e-20, rz / denom, 0.0)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.sum(r * z)
+        beta = torch.where(rz > 1e-20, rz_new / rz, 0.0)
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
+# --------------------------------------------------------------------------
+# LM solver
+# --------------------------------------------------------------------------
+
+def solve(
+    poses: torch.Tensor,
+    g: FactorGraph,
+    node_mask: torch.Tensor,
+    *,
+    max_iterations: int = 20,
+    damping_init: float = 1e-4,
+    method: str = "dense",
+    cg_iterations: int = 64,
+    robust_delta: float | None = None,
+    gradient_tol: float = 0.0,
+    terminate_on_reject: bool = False,
+    rel_tol: float = 1e-6,
+) -> tuple[torch.Tensor, SolveStats]:
+    """Levenberg-Marquardt over the pose graph (the JAX package's solve,
+    with its while_loop as a Python loop).
+
+    method: "dense" (Cholesky), "dense_cg" (dense-matvec PCG) or "cg"
+    (block-sparse PCG). Accept when the error drops; damping x0.5 on
+    accept, x4 on reject, clipped to [1e-9, 1e6]. gradient_tol skips or
+    stops when the max-abs gradient is below it; terminate_on_reject stops
+    on a rejection after one first-step damping retry (warm solves).
+    """
+    if method == "dense_pallas":
+        raise NotImplementedError(
+            "method='dense_pallas' needs the SPD kernel K2, not ported yet (ROADMAP.md Queue 2)"
+        )
+    if method not in ("dense", "dense_cg", "cg"):
+        raise ValueError(f"unknown solve method {method!r}")
+    eq, err0 = _assemble(poses, g, node_mask, robust_delta)
+    gnorm = float(eq.rhs.abs().max())
+    err = err0
+    damping = torch.tensor(damping_init, dtype=poses.dtype, device=poses.device)
+    accepted = 0
+    it = 0
+    done = False
+    while it < max_iterations and not done and gnorm > gradient_tol:
+        if method == "dense":
+            delta = _dense_solve(eq, g, damping)
+        elif method == "dense_cg":
+            delta = _dense_cg_solve(eq, g, damping, cg_iterations)
+        else:
+            delta = _cg_solve(eq, g, damping, cg_iterations)
+        new_poses = poses - delta
+        new_poses = torch.cat([new_poses[:, :2], geom.wrap_angle(new_poses[:, 2:3])], dim=-1)
+        new_err = total_error(new_poses, g, robust_delta)
+        accept = bool(new_err < err)
+        small = bool((err - new_err) / torch.clamp(err, min=1e-12) < rel_tol)
+        if terminate_on_reject:
+            # Stop on a tiny accept or a reject, but give a first-step
+            # rejection one damping retry (it can be an overshoot).
+            done = small and (accept or accepted > 0 or it >= 1)
+        else:
+            done = accept and small
+        if accept:
+            poses, err = new_poses, new_err
+            # Re-linearize only when the loop continues from here.
+            if not done and it + 1 < max_iterations:
+                eq, _ = _assemble(poses, g, node_mask, robust_delta)
+                gnorm = float(eq.rhs.abs().max())
+        damping = torch.clamp(damping * (0.5 if accept else 4.0), 1e-9, 1e6)
+        accepted += int(accept)
+        it += 1
+    return poses, SolveStats(initial_error=err0, final_error=err, iterations=accepted)

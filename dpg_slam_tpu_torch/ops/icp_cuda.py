@@ -1,0 +1,167 @@
+"""Host-side wrapper of kernel K1, the hand-written CUDA point-to-line ICP
+(csrc/icp_kernel.cu) — the port of dpg_slam_tpu/ops/icp_pallas.py
+(``icp_align_pallas`` around the Pallas kernel ``_kernel``).
+
+The kernel replaces the TPU kernel icp_pallas._kernel (+ _finish_iteration,
+launched by _run_kernel). One CTA per pair runs the whole ICP loop with the
+pair's points in shared memory; see the kernel source for its layout and
+what bounds it: at B = 9 (a keyframe batch) 9 of the H100's 132 SMs are
+busy and the run is latency-bound; at B ~ 1.7k (the compacted reoptimize
+sweep) it is bound by issue of the P^2 distance sweeps.
+
+Build: ``nvcc`` compiles the source for sm_90a into a shared library with a
+plain C entry point, cached under ``build/kernels/`` by a hash of the
+source and flags, at first use. A missing nvcc or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+from dpg_slam_tpu_torch.config import PoseGraphParams
+from dpg_slam_tpu_torch.ops import icp as icp_mod
+
+__all__ = ["LAUNCHES", "build", "icp_align_cuda", "run_kernel"]
+
+# Kernel launches since import (or since a caller reset it to 0).
+LAUNCHES = 0
+
+_MASK_COORD = 1e4  # masked points parked at -/+ this: gated out by distance
+_OUT_COLS = 24
+_MAX_POINTS = 4096  # 10 * P floats of shared memory must fit one SM (227 KB)
+
+_SRC = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "icp_kernel.cu"
+_BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+_LIB = None
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the ICP kernel cannot be built")
+    return path
+
+
+def build() -> pathlib.Path:
+    """Compile the kernel library unless a build of this exact source and
+    flag set exists; returns its path."""
+    src = _SRC.read_bytes()
+    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = _BUILD_DIR / f"icp_kernel_{tag}.so"
+    if lib.exists():
+        return lib
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SRC)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def _load():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        fn = lib.icp_p2l_launch
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # planes, seeds, out
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B P max_it anneal
+            ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float,  # corr recip eps damp
+            ctypes.c_int, ctypes.c_float, ctypes.c_void_p,  # censi tol stream
+        ]
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def run_kernel(planes: torch.Tensor, seeds: torch.Tensor, params: PoseGraphParams,
+               censi: bool) -> torch.Tensor:
+    """Launch K1 on (7, B, P) planes and (B, 4) seeds; returns the (B, 24)
+    output rows (see the kernel source for the columns)."""
+    global LAUNCHES
+    if planes.device.type != "cuda" or seeds.device != planes.device:
+        raise ValueError("run_kernel takes CUDA tensors on one device")
+    if planes.dtype != torch.float32 or seeds.dtype != torch.float32:
+        raise ValueError("run_kernel takes float32 tensors")
+    if planes.ndim != 3 or planes.shape[0] != 7:
+        raise ValueError(f"planes must be (7, B, P), got {tuple(planes.shape)}")
+    _, B, P = planes.shape
+    if seeds.shape != (B, 4):
+        raise ValueError(f"seeds must be ({B}, 4), got {tuple(seeds.shape)}")
+    if not (planes.is_contiguous() and seeds.is_contiguous()):
+        raise ValueError("run_kernel takes contiguous tensors")
+    if not 1 <= P <= _MAX_POINTS:
+        raise ValueError(f"the ICP kernel takes 1 <= P <= {_MAX_POINTS} points, got {P}")
+    out = torch.empty((B, _OUT_COLS), dtype=torch.float32, device=planes.device)
+    if B == 0:
+        return out
+    lib = _load()
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    err = lib.icp_p2l_launch(
+        planes.data_ptr(), seeds.data_ptr(), out.data_ptr(),
+        B, P, params.icp_maximum_iterations, icp_mod.anneal_length(params),
+        params.icp_max_correspondence_distance,
+        int(params.icp_use_reciprocal_correspondences),
+        params.icp_maximum_transformation_epsilon, icp_mod._DAMPING,
+        int(censi), params.icp_error_delta_rel_tol, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"ICP kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return out
+
+
+def pack(src, src_mask, tgt, tgt_mask, tgt_normals, init_guess, gate_multiplier):
+    """Kernel inputs: validity folded into coordinates (masked sources at
+    -1e4, masked targets at +1e4, so distance gating alone excludes them)
+    as (7, B, P) planes, and (B, 4) seeds [tx, ty, th, gate_mult]."""
+    planes = torch.stack(
+        [
+            torch.where(src_mask, src[..., 0], -_MASK_COORD),
+            torch.where(src_mask, src[..., 1], -_MASK_COORD),
+            torch.where(tgt_mask, tgt[..., 0], _MASK_COORD),
+            torch.where(tgt_mask, tgt[..., 1], _MASK_COORD),
+            tgt_normals[..., 0],
+            tgt_normals[..., 1],
+            src_mask.to(torch.float32),
+        ]
+    ).to(torch.float32).contiguous()
+    seeds = torch.cat([init_guess, gate_multiplier[:, None]], dim=-1).to(torch.float32).contiguous()
+    return planes, seeds
+
+
+def icp_align_cuda(
+    src, src_mask, tgt, tgt_mask, init_guess, params: PoseGraphParams, *,
+    tgt_normals, gate_multiplier, min_correspondences, fitness_threshold,
+    min_overlap, sensor_noise_std,
+) -> icp_mod.ICPResult:
+    """ops.icp.icp_align on CUDA tensors through K1 (point-to-line, no
+    RANSAC: icp_align raises for the rest before it gets here)."""
+    censi = icp_mod.is_censi_mode(params)
+    planes, seeds = pack(src, src_mask, tgt, tgt_mask, tgt_normals, init_guess, gate_multiplier)
+    out = run_kernel(planes, seeds, params, censi)
+    H = out[:, [5, 6, 7, 6, 8, 9, 7, 9, 10]].reshape(-1, 3, 3)
+    return icp_mod.accept_and_covariance(
+        out[:, 0:3], out[:, 3].to(torch.int32), out[:, 4], H,
+        out[:, 12:20] if censi else None,
+        src_mask=src_mask, init_guess=init_guess, gate_multiplier=gate_multiplier,
+        params=params, min_correspondences=min_correspondences,
+        fitness_threshold=fitness_threshold, min_overlap=min_overlap,
+        sensor_noise_std=sensor_noise_std,
+    )

@@ -1,0 +1,122 @@
+"""Kernel K1 (csrc/icp_kernel.cu) on a CUDA card against its plain PyTorch
+version, and the port's keyframe path on the card against the CPU.
+
+These tests need an NVIDIA GPU and nvcc; elsewhere they skip. The file
+imports no JAX, so it runs on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances are tests/test_icp_pallas.py's (transform atol 5e-4, fitness
+atol 1e-4, covariance rtol 0.05): both form d2 as dx² + dy², but the
+kernel sums in another order, and each pair exits on its own where the
+plain loop runs until the whole batch has frozen.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dpg_slam_tpu_torch import geom
+from dpg_slam_tpu_torch.config import CapacityParams, DpgConfig, PoseGraphParams, ScanParams
+from dpg_slam_tpu_torch.engine import DpgSlamEngine
+from dpg_slam_tpu_torch.io import dataset
+from dpg_slam_tpu_torch.ops import icp, icp_cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    return torch.device("cuda")
+
+
+def _room_batch(B, seed, noise=0.005, n=256):
+    """B pairs of points on the walls of an 8x6 room; each source is the
+    target seen from a random pose within ±0.3 (m, rad)."""
+    rng = np.random.default_rng(seed)
+    tgts, poses = [], []
+    for _ in range(B):
+        t = rng.uniform(0, 4, n)
+        side = rng.integers(0, 4, n)
+        x = np.where(side < 2, t * 2 - 4, np.where(side == 2, -4.0, 4.0))
+        y = np.where(side == 0, -3.0, np.where(side == 1, 3.0, t * 1.5 - 3))
+        tgts.append(np.stack([x, y], 1) + rng.normal(0, noise, (n, 2)))
+        poses.append(rng.uniform(-0.3, 0.3, 3))
+    tgt = torch.tensor(np.stack(tgts), dtype=torch.float32)
+    pose = torch.tensor(np.stack(poses), dtype=torch.float32)
+    src = geom.inv_apply(pose, tgt)
+    mask = torch.ones((B, n), dtype=torch.bool)
+    return src, mask, tgt, mask.clone(), torch.zeros((B, 3)), pose
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gn", "censi_masked", "gate_per_pair", "large_batch"])
+def test_kernel_matches_plain_on_card(cuda, case):
+    B = 1024 if case == "large_batch" else 9
+    src, smask, tgt, tmask, seeds, true_pose = _room_batch(B, seed=31)
+    pg = PoseGraphParams()
+    gate = torch.full((B,), pg.icp_coarse_gate_multiplier)
+    if case == "censi_masked":
+        pg = PoseGraphParams(icp_covariance_mode="censi")
+        smask[:, 200:] = False
+        tmask[:, 220:] = False
+    elif case == "gate_per_pair":
+        seeds = true_pose + torch.tensor([0.5, 0.0, 0.0])
+    elif case == "large_batch":
+        gate[:] = 1.0
+        seeds = true_pose + 0.05
+    args = [x.to(cuda) for x in (src, smask, tgt, tmask, seeds)] + [pg]
+    kw = dict(
+        tgt_normals=icp.estimate_normals(args[2], args[3]), gate_multiplier=gate.to(cuda),
+        min_correspondences=10, fitness_threshold=0.25, min_overlap=pg.icp_min_overlap,
+        sensor_noise_std=pg.icp_sensor_noise_std,
+    )
+    before = icp_cuda.LAUNCHES
+    ker = icp.icp_align(*args, **kw)  # dispatches to K1 on a CUDA tensor
+    torch.cuda.synchronize()
+    assert icp_cuda.LAUNCHES == before + 1
+    ref = icp.icp_align_plain(*args, **kw)
+    np.testing.assert_allclose(ker.transform.cpu(), ref.transform.cpu(), atol=5e-4)
+    np.testing.assert_allclose(ker.fitness.cpu(), ref.fitness.cpu(), atol=1e-4)
+    agree = (ker.converged == ref.converged).float().mean().item()
+    assert agree >= (0.999 if B > 100 else 1.0)
+    both = (ker.converged == ref.converged).cpu()
+    np.testing.assert_allclose(
+        ker.covariance.cpu()[both], ref.covariance.cpu()[both], rtol=0.05, atol=1e-7
+    )
+    if case != "censi_masked":
+        np.testing.assert_allclose(ker.transform.cpu(), true_pose, atol=5e-2)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_bad_inputs(cuda):
+    planes = torch.zeros((7, 2, 8), device=cuda)
+    with pytest.raises(ValueError, match="seeds"):
+        icp_cuda.run_kernel(planes, torch.zeros((3, 4), device=cuda), PoseGraphParams(), censi=False)
+    with pytest.raises(ValueError, match="float32"):
+        icp_cuda.run_kernel(planes.double(), torch.zeros((2, 4), device=cuda), PoseGraphParams(), censi=False)
+
+
+@pytest.mark.cuda
+def test_keyframe_path_on_card_matches_cpu(cuda):
+    cfg = DpgConfig(
+        scan=ScanParams(num_beams=256),
+        pose_graph=PoseGraphParams(icp_max_points=64, icp_maximum_iterations=30, max_loop_closures_per_node=4),
+        capacity=CapacityParams(max_nodes=64, max_edges=512, max_priors=8),
+    )
+    seq = dataset.simulate_sequence(
+        dataset.make_office_world(), dataset.office_loop_waypoints(), cfg.scan,
+        step=0.5, seed=1, odom_noise_transl=0.02, odom_noise_rot=0.008,
+    )
+    runs = []
+    for device in (cuda, "cpu"):
+        eng = DpgSlamEngine(cfg, device)
+        kfs = []
+        for t in range(len(seq.scans)):
+            eng.observe_odometry(seq.odometry[t])
+            if eng.observe_laser(seq.scans[t]):
+                kfs.append(t)
+        runs.append((kfs, eng.trajectory(), int(eng.state.graph.num_edges)))
+    (kg, tg, eg), (kc, tc, ec) = runs
+    assert kg == kc and eg == ec
+    np.testing.assert_allclose(tg, tc, atol=1e-2)

@@ -1,0 +1,209 @@
+"""Port parity: dpg_slam_tpu_torch.engine and utils.checkpoint against the
+JAX engine on the simulated office loop at test_engine.small_config().
+
+Tolerances: keyframe indices and the factor graph's edge list must be
+identical; poses agree within 1e-3 m / 1e-3 rad after one pass and 2e-3
+after the pass-boundary reoptimize (float32 ICP and LM solves in another
+summation order; a per-pair ICP difference of ~1e-5 m is propagated
+through ~40 keyframes and one full LM solve). State round trips are exact.
+"""
+
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from dpg_slam_tpu import engine as jeng
+from dpg_slam_tpu.config import CapacityParams
+from dpg_slam_tpu.io import dataset as jds
+from dpg_slam_tpu.utils.checkpoint import _flatten_state
+from dpg_slam_tpu_torch import engine as teng
+from dpg_slam_tpu_torch.config import DpgConfig as TorchConfig
+from dpg_slam_tpu_torch.io import dataset as tds
+from dpg_slam_tpu_torch.utils import checkpoint as tckpt
+from dpg_slam_tpu_torch.utils.metrics import ate_rmse, to_anchor_frame
+
+from test_engine import run_sequence, small_config
+
+ASSETS = pathlib.Path(__file__).parent.parent / "bench_assets"
+
+
+def _configs():
+    # Capacity for two passes of the loop (test_engine's two-pass tests).
+    jcfg = small_config().replace(capacity=CapacityParams(max_nodes=128, max_edges=1024, max_priors=8))
+    return jcfg, TorchConfig.from_json(jcfg.to_json())
+
+
+@pytest.fixture(scope="module")
+def office_seq():
+    jcfg, _ = _configs()
+    return jds.simulate_sequence(
+        jds.make_office_world(), jds.office_loop_waypoints(), jcfg.scan, step=0.5, seed=1,
+        odom_noise_transl=0.02, odom_noise_rot=0.008,
+    )
+
+
+@pytest.fixture(scope="module")
+def one_pass(office_seq):
+    """Both engines after one pass of the loop: (jax_eng, torch_eng, kf_j, kf_t)."""
+    jcfg, tcfg = _configs()
+    je = jeng.DpgSlamEngine(jcfg)
+    te = teng.DpgSlamEngine(tcfg, "cpu")
+    return je, te, run_sequence(je, office_seq), run_sequence(te, office_seq)
+
+
+def _clone(je, te):
+    """Fresh engine objects over the same (never mutated in place) states."""
+    je2 = jeng.DpgSlamEngine(je.config)
+    je2.state = je.state
+    te2 = teng.DpgSlamEngine(te.config, "cpu")
+    te2.state = te.state
+    return je2, te2
+
+
+def _assert_poses_close(jt, tt, atol):
+    np.testing.assert_allclose(tt[:, :2], jt[:, :2], atol=atol)
+    dth = np.angle(np.exp(1j * (tt[:, 2].astype(np.float64) - jt[:, 2])))
+    np.testing.assert_allclose(dth, 0.0, atol=atol)
+
+
+def _assert_same_edges(jstate, tstate):
+    n = int(jstate.graph.num_edges)
+    assert int(tstate.graph.num_edges) == n
+    np.testing.assert_array_equal(tstate.graph.edge_idx[:n].numpy(), np.asarray(jstate.graph.edge_idx[:n]))
+
+
+def test_dataset_copy_matches_jax():
+    jcfg, tcfg = _configs()
+    kw = dict(step=1.0, seed=3, odom_noise_transl=0.02, odom_noise_rot=0.008)
+    a = jds.simulate_sequence(jds.make_office_world(), jds.office_loop_waypoints(), jcfg.scan, **kw)
+    b = tds.simulate_sequence(tds.make_office_world(), tds.office_loop_waypoints(), tcfg.scan, **kw)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_single_pass_matches_jax(one_pass, office_seq):
+    je, te, kf_j, kf_t = one_pass
+    assert kf_t == kf_j and len(kf_t) >= 10
+    _assert_same_edges(je.state, te.state)
+    _assert_poses_close(je.trajectory(), te.trajectory(), 1e-3)
+    np.testing.assert_allclose(te.pose(), np.asarray(je.pose()), atol=1e-3)
+    # The port tracks on its own terms too (test_engine's ATE bounds).
+    gt = to_anchor_frame(office_seq.ground_truth[kf_t])
+    ate = ate_rmse(te.trajectory(), gt)
+    assert ate < 0.25
+    assert ate <= ate_rmse(to_anchor_frame(te.odom_trajectory()), gt) + 0.05
+
+
+def test_state_round_trip_with_jax_is_exact(one_pass):
+    je, _, _, _ = one_pass
+    flat = _flatten_state(je.state)
+    state = tckpt.state_from_numpy(flat, TorchConfig.from_json(je.config.to_json()), "cpu")
+    back = tckpt.state_to_numpy(state)
+    assert back.keys() == flat.keys()
+    for k in flat:
+        assert back[k].dtype == flat[k].dtype, k
+        np.testing.assert_array_equal(back[k], flat[k], err_msg=k)
+
+
+def test_load_checkpoint_equals_npz():
+    eng = tckpt.load_checkpoint(ASSETS / "keyframe", "cpu")
+    with np.load(ASSETS / "keyframe" / "state.npz") as npz:
+        stored = dict(npz)
+    flat = tckpt.state_to_numpy(eng.state)
+    assert flat.keys() == stored.keys()
+    for k, v in stored.items():
+        np.testing.assert_array_equal(flat[k], v, err_msg=k)
+    assert eng.num_nodes() == 25 and eng.config.pose_graph.icp_max_points == 256
+
+
+def test_state_from_numpy_rejects_wrong_shape():
+    _, tcfg = _configs()
+    with pytest.raises(ValueError, match="poses"):
+        tckpt.state_from_numpy({"poses": np.zeros((3, 3), np.float32)}, tcfg, "cpu")
+
+
+def test_two_pass_reoptimize_matches_jax(one_pass, office_seq):
+    je, te, _, _ = one_pass
+    je, te = _clone(je, te)
+    je._dpg_enabled = False
+    te._dpg_enabled = False
+    je.increment_pass()
+    te.increment_pass()
+    _assert_poses_close(je.trajectory(), te.trajectory(), 2e-3)
+    assert int(te.state.graph.num_edges) == int(je.state.graph.num_edges)
+    # Second pass (every other scan), then the second reoptimize.
+    assert run_sequence(te, office_seq, stride=2) == run_sequence(je, office_seq, stride=2)
+    je.increment_pass()
+    te.increment_pass()
+    _assert_poses_close(je.trajectory(), te.trajectory(), 2e-3)
+    _assert_same_edges(je.state, te.state)
+    assert int(te.state.pass_number) == 2
+
+
+def test_reoptimize_valid_host_parity(one_pass, office_seq):
+    """The numpy validity replica marks exactly the live slots of the
+    device enumeration, and equals the JAX package's replica."""
+    je, te, _, _ = one_pass
+    je, te = _clone(je, te)
+    te._dpg_enabled = False
+    te.increment_pass()
+    run_sequence(te, office_seq, stride=2)
+    state = te.state
+    cfg = te.config
+    dev_valid = teng._reoptimize_pairs(cfg, state)[2].numpy()
+    poses, pass_ids = state.poses.numpy(), state.pass_ids.numpy()
+    node_mask = np.arange(cfg.capacity.max_nodes) < te.num_nodes()
+    host_valid = teng._reoptimize_valid_host(cfg, poses, pass_ids, node_mask)
+    np.testing.assert_array_equal(host_valid, dev_valid)
+    np.testing.assert_array_equal(host_valid, jeng._reoptimize_valid_host(je.config, poses, pass_ids, node_mask))
+    assert dev_valid.sum() > te.num_nodes()  # closures present, not only successive pairs
+
+
+def test_dpg_on_second_pass_raises(one_pass, office_seq):
+    _, te, _, _ = one_pass
+    _, te = _clone(one_pass[0], te)
+    te._dpg_enabled = False
+    te.increment_pass()
+    te._dpg_enabled = True
+    te.observe_odometry(office_seq.odometry[0])
+    before = te.state
+    with pytest.raises(NotImplementedError, match="DPG"):
+        te.observe_laser(office_seq.scans[0])
+    assert te.state is before  # nothing half-applied
+    for call in (te.map_layers, te.occupancy_grid, te.map_points):
+        with pytest.raises(NotImplementedError, match="DPG"):
+            call()
+
+
+def test_relative_odometry_matches_jax(office_seq):
+    jcfg, tcfg = _configs()
+    je = jeng.DpgSlamEngine(jcfg)
+    te = teng.DpgSlamEngine(tcfg, "cpu")
+    je.observe_odometry(office_seq.odometry[0])
+    te.observe_odometry(office_seq.odometry[0])
+    rng = np.random.default_rng(7)
+    for _ in range(5):
+        delta = rng.normal([0.3, 0.0, 0.1], 0.05).astype(np.float32)
+        je.observe_odometry_relative(delta)
+        te.observe_odometry_relative(delta)
+    np.testing.assert_allclose(te.state.prev_odom.numpy(), np.asarray(je.state.prev_odom), atol=1e-5)
+    np.testing.assert_allclose(
+        float(te.state.cumulative_dist), float(je.state.cumulative_dist), atol=1e-5
+    )
+
+
+def test_edge_overflow_fails_loudly():
+    _, tcfg = _configs()
+    eng = teng.DpgSlamEngine(tcfg, "cpu")
+    eng._check_edge_overflow(tcfg.capacity.max_edges)  # at capacity: fine
+    with pytest.raises(RuntimeError, match="edge capacity"):
+        eng._check_edge_overflow(tcfg.capacity.max_edges + 1)
+
+
+def test_engine_requires_a_device():
+    _, tcfg = _configs()
+    with pytest.raises(TypeError):
+        teng.DpgSlamEngine(tcfg)  # the caller always names the device
+    assert teng.DpgSlamEngine(tcfg, torch.device("cpu")).state.poses.device.type == "cpu"
