@@ -3,26 +3,37 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written ICP kernel (K1, csrc/icp_kernel.cu) with nvcc,
-holds it against its plain PyTorch version at the main path's shapes, then
-drives the port's main path through the engine API a user calls, at the
-full-width bench configuration of the committed fixtures (1024 beams,
-256 ICP points, K = 8, 30 ICP iterations):
+Builds the hand-written kernels, the ICP loop (K1, csrc/icp_kernel.cu) and
+the batched SPD solve (K2, csrc/spd_solve_kernel.cu), with one nvcc each,
+started together; holds each against its plain PyTorch version at the
+shapes its paths give it; then drives the port's paths through the entry
+points a user calls, at the full-width bench configuration of the
+committed fixtures (1024 beams, 256 ICP points, K = 8, 30 ICP iterations,
+256 node slots):
 
-  0 context    card name and power limit (nvidia-smi), torch / CUDA versions
-  1 build      nvcc build of K1
-  2 kernel     K1 vs plain on a keyframe's 9-pair batch, the ~1.7k-pair
-               compacted reoptimize sweep, and a Censi-mode masked batch
-  3 keyframe   bench_assets/keyframe + its 69 continuation scans, on the
-               card and on the CPU (plain versions); kf/s
-  4 ate        the office loop simulated at full width, tracked on the card
-  5 reoptimize bench_assets/session: increment_pass() on the card and on
-               the CPU; pairs/s
+  0 context      card name and power limit (nvidia-smi), torch / CUDA versions
+  1 build        nvcc builds of K1 and K2
+  2 kernel       K1 vs plain on a keyframe's 9-pair batch, the ~1.7k-pair
+                 compacted reoptimize sweep, and a Censi-mode masked batch
+  2b k2_kernel   K2 vs plain and vs torch.linalg's Cholesky on the inputs
+                 its three paths give it (captured from those paths)
+  3 keyframe     bench_assets/keyframe + its 69 continuation scans, on the
+                 card and on the CPU (plain versions); kf/s
+  4 ate          the office loop simulated at full width, tracked on the card
+  5 reoptimize   bench_assets/session: increment_pass() on the card and on
+                 the CPU; pairs/s
+  6 dense_pallas phases 3 and 5 with solve_method = "dense_pallas" (K2),
+                 against the card's "dense" runs
+  7 schur        distributed_reoptimize on 4 shards of bench_assets/session,
+                 Schur elimination through K2, against torch.linalg's
+                 elimination and the single-card reoptimize; and an engine
+                 built with the mesh
 
-Each phase prints one JSON line; any failed check raises, so the exit code
-is non-zero. The last lines are the kernels' record, the card's
-nvidia-smi line and {"ok": true, "device": {...}}. Without a CUDA device
-it raises before doing anything.
+Each path phase (3-7) runs with the kernels' launch counts set to 0 just
+before it and read just after. Each phase prints one JSON line; any failed
+check raises, so the exit code is non-zero. The last lines are the
+kernels' record, the card's nvidia-smi line and {"ok": true, "device":
+{...}}. Without a CUDA device it raises before doing anything.
 """
 
 from __future__ import annotations
@@ -41,7 +52,11 @@ import dpg_slam_tpu_torch  # noqa: F401  (sets the float32 matmul policy)
 from dpg_slam_tpu_torch import engine as eng_mod
 from dpg_slam_tpu_torch.config import DpgConfig
 from dpg_slam_tpu_torch.io import dataset
-from dpg_slam_tpu_torch.ops import icp, icp_cuda
+from dpg_slam_tpu_torch.ops import _nvcc, icp, icp_cuda, schur, schur_cuda
+from dpg_slam_tpu_torch.parallel import distributed_reoptimize, make_mesh
+from dpg_slam_tpu_torch.parallel.distributed import separator_cap
+from dpg_slam_tpu_torch.parallel.partition import spatial_blocks
+from dpg_slam_tpu_torch.parallel.schur import schur_solve
 from dpg_slam_tpu_torch.utils.checkpoint import load_checkpoint
 from dpg_slam_tpu_torch.utils.metrics import ate_rmse, to_anchor_frame
 
@@ -58,6 +73,29 @@ GATE_REL = 1e-3
 # Card vs CPU engine runs.
 POSE_TOL = 1e-2
 EDGE_REL = 0.005
+# K2 vs plain: max |X_k - X_p| / max |X_p| within 1e-4 (two blocked
+# Cholesky orders in float32), or, on a system whose conditioning spreads
+# any two float32 factorizations further apart, within twice the distance
+# between torch.linalg's Cholesky and the plain version on the same input;
+# and K2's relative residual |H X - B| / |B| within 1e-5 or twice the
+# library's.
+K2_REL = 1e-4
+K2_RESIDUAL = 1e-5
+# Schur reoptimize: K2 vs torch.linalg elimination (the rel_tol stop may
+# take one step more or fewer at full size; tests/test_schur.py holds 1e-4
+# at N = 32) and vs the single-card dense reoptimize
+# (tests/test_distributed.py's 2e-2).
+SCHUR_ELIM_TOL = 1e-3
+SCHUR_SINGLE_TOL = 2e-2
+SHARDS = 4
+# H100 SXM published peaks (NVIDIA data sheet): FP32 outside the
+# tensor cores and HBM3 bandwidth.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+K1, K2 = "icp_point_to_line", "spd_solve"
+# Launches on the paths (phases 3-7), summed over the phases.
+LAUNCHED = {K1: 0, K2: 0}
 
 
 def emit(phase: str, **fields) -> None:
@@ -76,6 +114,24 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def counted(run):
+    """Run one path with both kernels' counts at 0; add what it launched to
+    LAUNCHED and return (result, {kernel: launches})."""
+    icp_cuda.LAUNCHES = 0
+    schur_cuda.LAUNCHES = 0
+    out = run()
+    got = {K1: icp_cuda.LAUNCHES, K2: schur_cuda.LAUNCHES}
+    for k, v in got.items():
+        LAUNCHED[k] += v
+    return out, got
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least milliseconds, what bounds it) on the card's published peaks."""
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 # --- phase 2 helpers ---------------------------------------------------------
@@ -150,6 +206,21 @@ def compare(name, ker, ref, pg, seeds, gate):
     return t_err
 
 
+def k1_bound(args, out, pg):
+    """K1's least time on this batch: per pair, (iterations + 1 final pass)
+    sweeps over valid sources x valid targets at 6 ops (row-min: 2 sub,
+    2 mul, add, min) + 8 (accumulate: the distance, 3 compares) + 6
+    (col-min, with reciprocal matching) per point pair; bytes: the 7 input
+    planes, the seeds and the 24-float output rows read or written once."""
+    src, src_mask, tgt, tgt_mask = args[:4]
+    B, P = src_mask.shape
+    passes = out[:, 11].double() + 1.0
+    pairs = src_mask.sum(1).double() * tgt_mask.sum(1).double()
+    per = 6 + 8 + (6 if pg.icp_use_reciprocal_correspondences else 0)
+    ops = float((passes * pairs).sum()) * per
+    return bound(ops, 4.0 * (7 * B * P + 4 * B + 24 * B))
+
+
 def kernel_phase(cfg: DpgConfig):
     """Phase 2: K1 against the plain version at the main path's shapes."""
     pg = cfg.pose_graph
@@ -180,15 +251,19 @@ def kernel_phase(cfg: DpgConfig):
         plain_ms = cuda_ms(lambda: icp.icp_align_plain(*args, p, **kw), reps)
         planes, kseeds = icp_cuda.pack(*args[:4], normals, args[4], gate)
         kernel_only_ms = cuda_ms(lambda: icp_cuda.run_kernel(planes, kseeds, p, False), reps)
-        times[name] = dict(pairs=int(args[0].shape[0]), ms=ms, plain_ms=plain_ms, kernel_only_ms=kernel_only_ms)
+        bound_ms, bound_by = k1_bound(args, icp_cuda.run_kernel(planes, kseeds, p, False), p)
+        times[name] = dict(pairs=int(args[0].shape[0]), ms=ms, plain_ms=plain_ms, kernel_only_ms=kernel_only_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
         emit("kernel_time", batch=name, **times[name])
     return worst, times, n_live
 
 
 # --- phases 3-5 ---------------------------------------------------------------
 
-def run_keyframes(device: str):
+def run_keyframes(device: str, solve_method: str | None = None):
     eng = load_checkpoint(ASSETS / "keyframe", device)
+    if solve_method is not None:
+        eng.solve_method = solve_method
     with np.load(ASSETS / "keyframe" / "continuation.npz") as cont:
         scans, odom = cont["scans"], cont["odometry"]
     kfs = []
@@ -220,9 +295,8 @@ def check_same_run(name, gpu, cpu):
 
 def keyframe_phase():
     run_keyframes(DEVICE)  # warm-up: cuSOLVER / allocator first use
-    before = icp_cuda.LAUNCHES
-    gpu, kfs, secs = run_keyframes(DEVICE)
-    launches = icp_cuda.LAUNCHES - before
+    (gpu, kfs, secs), got = counted(lambda: run_keyframes(DEVICE))
+    launches = got[K1]
     cpu, kfs_cpu, cpu_secs = run_keyframes("cpu")
     if kfs != kfs_cpu:
         raise AssertionError(f"keyframe indices differ: {kfs} vs {kfs_cpu}")
@@ -231,7 +305,7 @@ def keyframe_phase():
     diff = check_same_run("keyframe", gpu, cpu)
     emit("keyframe", keyframes=len(kfs), seconds=secs, kf_per_s=len(kfs) / secs,
          cpu_seconds=cpu_secs, launches=launches, **diff)
-    return len(kfs) / secs
+    return gpu, kfs, secs
 
 
 def ate_phase(cfg: DpgConfig):
@@ -254,26 +328,202 @@ def ate_phase(cfg: DpgConfig):
     return ate
 
 
-def reoptimize_phase(n_live: int):
-    def run(device):
-        eng = load_checkpoint(ASSETS / "session", device)
-        eng._dpg_enabled = False
-        t0 = time.perf_counter()
-        eng.increment_pass()
-        if device == "cuda":
-            torch.cuda.synchronize()
-        return eng, time.perf_counter() - t0
+def run_reoptimize(device, solve_method: str | None = None):
+    eng = load_checkpoint(ASSETS / "session", device)
+    eng._dpg_enabled = False
+    if solve_method is not None:
+        eng.solve_method = solve_method
+    t0 = time.perf_counter()
+    eng.increment_pass()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
 
-    before = icp_cuda.LAUNCHES
-    gpu, secs = run(DEVICE)
-    launches = icp_cuda.LAUNCHES - before
-    cpu, cpu_secs = run("cpu")
+
+def reoptimize_phase(n_live: int):
+    (gpu, secs), got = counted(lambda: run_reoptimize(DEVICE))
+    launches = got[K1]
+    cpu, cpu_secs = run_reoptimize("cpu")
     if launches < 1:
         raise AssertionError("the reoptimize did not launch K1")
     diff = check_same_run("reoptimize", gpu, cpu)
     emit("reoptimize", nodes=gpu.num_nodes(), live_pairs=n_live, seconds=secs,
          pairs_per_s=n_live / secs, cpu_seconds=cpu_secs, launches=launches, **diff)
-    return n_live / secs
+    return gpu, secs
+
+
+# --- phase 2b: K2 on its paths' inputs ----------------------------------------
+
+class _Captured(Exception):
+    pass
+
+
+def capture_spd_input(run):
+    """(H, B) of the first ops.schur.spd_solve call that `run` makes, as
+    (S, n, n) and (S, n, m); the run is stopped there."""
+    box = {}
+    real = schur.spd_solve
+
+    def record(H, B):
+        box["args"] = (H.detach().clone(), B.detach().clone())
+        raise _Captured
+
+    schur.spd_solve = record
+    try:
+        run()
+    except _Captured:
+        pass
+    finally:
+        schur.spd_solve = real
+    if "args" not in box:
+        raise AssertionError("the path never reached ops.schur.spd_solve")
+    H, B = box["args"]
+    if H.ndim == 2:
+        H, B = H[None], B[None]
+    return H.contiguous(), B.contiguous()
+
+
+def session_schur(pallas: bool):
+    eng = load_checkpoint(ASSETS / "session", DEVICE)
+    return distributed_reoptimize(make_mesh(SHARDS), eng.config, eng.state, solver="schur",
+                                  pallas_elimination=pallas)
+
+
+def k2_inputs():
+    """The inputs K2 gets on its paths: the dense_pallas keyframe solve
+    (bucket 64), the dense_pallas reoptimize (bucket 256) and the four
+    shards of one Schur iteration on bench_assets/session."""
+    return {
+        "keyframe_dense": capture_spd_input(lambda: run_keyframes(DEVICE, "dense_pallas")),
+        "reoptimize_dense": capture_spd_input(lambda: run_reoptimize(DEVICE, "dense_pallas")),
+        "schur_4_shards": capture_spd_input(lambda: session_schur(True)),
+    }
+
+
+def rel_residual(H, X, B):
+    return ((H @ X - B).abs().amax() / B.abs().amax()).item()
+
+
+def k2_kernel_phase():
+    """Phase 2b: K2 against the plain version and torch.linalg's Cholesky
+    (timed as a yardstick only) at its paths' shapes."""
+    out = {}
+    for name, (H, B) in k2_inputs().items():
+        S, n, _ = H.shape
+        m = B.shape[2]
+        ker = schur.spd_solve(H, B)
+        torch.cuda.synchronize()
+        ref = schur.spd_solve_plain(H, B)
+        abs_err = (ker - ref).abs().max().item()
+        rel_err = abs_err / ref.abs().max().item()
+        X = torch.empty_like(B)
+        work = torch.empty_like(H)
+        fast = n * m < 10_000
+        reps = 50 if fast else 10
+        library = lambda: torch.cholesky_solve(B, torch.linalg.cholesky_ex(H)[0])  # noqa: E731
+        lib_x = library()
+        lib_rel = ((lib_x - ref).abs().max() / ref.abs().max()).item()
+        bound_ms, bound_by = bound(2.0 * S * (n ** 3 / 3 + n * n * m), 4.0 * S * (n * n + 2 * n * m))
+        out[name] = dict(
+            S=S, n=n, m=m, launch_shape=list(schur_cuda.launch_shape(n, m)),
+            max_abs_err=abs_err, max_rel_err=rel_err, library_vs_plain_rel=lib_rel,
+            cond=torch.linalg.cond(H.double()).max().item(),
+            residual_kernel=rel_residual(H, ker, B), residual_plain=rel_residual(H, ref, B),
+            residual_library=rel_residual(H, lib_x, B),
+            ms=cuda_ms(lambda: schur.spd_solve(H, B), reps),
+            kernel_only_ms=cuda_ms(lambda: schur_cuda.run_kernel(H, B, X, work), reps),
+            plain_ms=cuda_ms(lambda: schur.spd_solve_plain(H, B), 3 if fast else 2),
+            library_ms=cuda_ms(library, reps),
+            bound_ms=bound_ms, bound_by=bound_by,
+        )
+        emit("k2_kernel", case=name, **out[name])
+        rel_tol = max(K2_REL, 2.0 * lib_rel)
+        res_tol = max(K2_RESIDUAL, 2.0 * out[name]["residual_library"])
+        if not rel_err <= rel_tol:
+            raise AssertionError(f"{name}: K2 differs from the plain version by {rel_err} > {rel_tol}")
+        if not out[name]["residual_kernel"] <= res_tol:
+            raise AssertionError(f"{name}: K2's residual {out[name]['residual_kernel']} > {res_tol}")
+    return out
+
+
+# --- phases 6-7 ---------------------------------------------------------------
+
+def dense_pallas_phase(kf_dense, ro_dense, n_live: int):
+    """Phase 6: the keyframe fixture and the session reoptimize with
+    solve_method = "dense_pallas", against the card's "dense" runs."""
+    gpu_kf, kfs, kf_secs = kf_dense
+    (eng, kfs_p, secs), got = counted(lambda: run_keyframes(DEVICE, "dense_pallas"))
+    if kfs_p != kfs:
+        raise AssertionError(f"dense_pallas keyframes differ: {kfs_p} vs {kfs}")
+    if got[K2] < len(kfs):
+        raise AssertionError(f"K2 launched {got[K2]} times for {len(kfs)} keyframes")
+    diff = check_same_run("dense_pallas keyframe", eng, gpu_kf)
+    emit("dense_pallas", run="keyframe", keyframes=len(kfs), kf_per_s=len(kfs) / secs,
+         dense_kf_per_s=len(kfs) / kf_secs, k2_launches=got[K2], k1_launches=got[K1], **diff)
+
+    gpu_ro, ro_secs = ro_dense
+    (eng, secs), got = counted(lambda: run_reoptimize(DEVICE, "dense_pallas"))
+    if got[K2] < 1:
+        raise AssertionError("the dense_pallas reoptimize did not launch K2")
+    diff = check_same_run("dense_pallas reoptimize", eng, gpu_ro)
+    emit("dense_pallas", run="reoptimize", seconds=secs, dense_seconds=ro_secs,
+         pairs_per_s=n_live / secs, dense_pairs_per_s=n_live / ro_secs,
+         k2_launches=got[K2], k1_launches=got[K1], **diff)
+
+
+def pose_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    d = (a - b).abs().double()
+    d[:, 2] = torch.remainder(d[:, 2] + np.pi, 2 * np.pi) - np.pi
+    return d.abs().max().item()
+
+
+def schur_phase(ro_dense, n_live):
+    """Phase 7: the Schur reoptimize on SHARDS shards through K2, against
+    torch.linalg's elimination and the single-card reoptimize."""
+    gpu_ro, ro_secs = ro_dense
+    n = gpu_ro.num_nodes()
+    t0 = time.perf_counter()
+    state, got = counted(lambda: session_schur(True))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if got[K2] < 1:
+        raise AssertionError("the Schur reoptimize did not launch K2")
+    xla = session_schur(False)
+    # The separator count of the partition the solve ran on.
+    N = state.poses.shape[0]
+    g = state.graph
+    assign = spatial_blocks(load_checkpoint(ASSETS / "session", "cpu").state.poses.numpy(),
+                            (np.arange(N) < n), SHARDS)
+    mask = torch.arange(N, device=DEVICE) < n
+    _, sep_count, _ = schur_solve(
+        make_mesh(SHARDS), state.poses, mask, g.prior_idx, g.prior_val, g.prior_sqrt_info, g.prior_mask,
+        g.edge_idx, g.edge_meas, g.edge_sqrt_info, g.edge_mask, torch.as_tensor(assign, device=DEVICE),
+        sep_cap=separator_cap(N), max_iterations=0,
+    )
+    mesh_eng = eng_mod.DpgSlamEngine(gpu_ro.config, mesh=make_mesh(SHARDS))
+    mesh_eng.state = load_checkpoint(ASSETS / "session", DEVICE).state
+    mesh_eng._dpg_enabled = False
+    _, got_eng = counted(mesh_eng.increment_pass)
+    out = dict(
+        shards=SHARDS, separators=sep_count, sep_cap=separator_cap(N), seconds=secs,
+        single_card_seconds=ro_secs, pairs_per_s=n_live / secs, single_card_pairs_per_s=n_live / ro_secs,
+        k2_launches=got[K2], k1_launches=got[K1], edges=int(state.graph.num_edges),
+        single_card_edges=int(gpu_ro.state.graph.num_edges),
+        k2_vs_linalg=pose_diff(state.poses[:n], xla.poses[:n]),
+        k2_vs_single_card=pose_diff(state.poses[:n], gpu_ro.state.poses[:n]),
+        engine_mesh_vs_single_card=pose_diff(mesh_eng.state.poses[:n], gpu_ro.state.poses[:n]),
+        engine_mesh_k1_launches=got_eng[K1],
+    )
+    emit("schur", **out)
+    if sep_count > separator_cap(N):
+        raise AssertionError(f"separators {sep_count} passed the cap: the solve fell back to CG")
+    if not all(np.isfinite(state.poses[:n].cpu().numpy()).ravel()):
+        raise AssertionError("the Schur reoptimize gave non-finite poses")
+    if out["k2_vs_linalg"] > SCHUR_ELIM_TOL:
+        raise AssertionError(f"K2 vs torch.linalg elimination: {out['k2_vs_linalg']} > {SCHUR_ELIM_TOL}")
+    for key in ("k2_vs_single_card", "engine_mesh_vs_single_card"):
+        if out[key] > SCHUR_SINGLE_TOL:
+            raise AssertionError(f"{key}: {out[key]} > {SCHUR_SINGLE_TOL}")
 
 
 def main() -> None:
@@ -287,33 +537,55 @@ def main() -> None:
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0))
 
     t0 = time.perf_counter()
-    icp_cuda.build()
+    _nvcc.build_all([icp_cuda._SRC, schur_cuda._SRC])  # one nvcc each, together
     icp_cuda._load()
-    emit("build", seconds=time.perf_counter() - t0)
+    schur_cuda._load()
+    emit("build", seconds=time.perf_counter() - t0, kernels=[K1, K2])
 
     cfg = DpgConfig.from_json((ASSETS / "keyframe" / "config.json").read_text())
     worst, times, n_live = kernel_phase(cfg)
+    k2 = k2_kernel_phase()
 
-    # The main path: counts start at 0 here and are read after phase 5.
-    icp_cuda.LAUNCHES = 0
-    keyframe_phase()
-    ate_phase(cfg)
-    reoptimize_phase(n_live)
-    launches = icp_cuda.LAUNCHES
-    if launches == 0:
-        raise AssertionError("the main path never launched K1")
+    # The paths: each runs with the counts at 0 (counted) and adds to LAUNCHED.
+    kf_dense = keyframe_phase()
+    counted(lambda: ate_phase(cfg))
+    ro_dense = reoptimize_phase(n_live)
+    dense_pallas_phase(kf_dense, ro_dense, n_live)
+    schur_phase(ro_dense, n_live)
+    for name, launches in LAUNCHED.items():
+        if launches == 0:
+            raise AssertionError(f"the paths never launched {name}")
 
     ro = times["reoptimize"]
-    print(json.dumps({"kernels": [{
-        "name": "icp_point_to_line",
-        "route": "cuda",
-        "source": "dpg_slam_tpu_torch/csrc/icp_kernel.cu",
-        "replaces": "dpg_slam_tpu/ops/icp_pallas.py:170",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": ro["ms"],
-        "plain_ms": ro["plain_ms"],
-    }]}), flush=True)
+    k2_main = k2["reoptimize_dense"]
+    print(json.dumps({"kernels": [
+        {
+            "name": K1,
+            "route": "cuda",
+            "source": "dpg_slam_tpu_torch/csrc/icp_kernel.cu",
+            "replaces": "dpg_slam_tpu/ops/icp_pallas.py:170",
+            "launches": LAUNCHED[K1],
+            "max_abs_err": worst,
+            "ms": ro["ms"],
+            "plain_ms": ro["plain_ms"],
+            "bound_ms": ro["bound_ms"],
+            "bound_by": ro["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": K2,
+            "route": "cuda",
+            "source": "dpg_slam_tpu_torch/csrc/spd_solve_kernel.cu",
+            "replaces": "dpg_slam_tpu/ops/schur_pallas.py:247",
+            "launches": LAUNCHED[K2],
+            "max_abs_err": max(v["max_abs_err"] for v in k2.values()),
+            "ms": k2_main["ms"],
+            "plain_ms": k2_main["plain_ms"],
+            "bound_ms": k2_main["bound_ms"],
+            "bound_by": k2_main["bound_by"],
+            "library_ms": k2_main["library_ms"],
+        },
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

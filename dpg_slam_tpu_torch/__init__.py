@@ -9,14 +9,21 @@ module layout so each module's counterpart is found by path:
   ops.icp    — batched point-to-line ICP (plain PyTorch) + covariance;
                on a CUDA tensor it launches the hand-written kernel in
                ops.icp_cuda (csrc/icp_kernel.cu)
+  ops.schur  — batched SPD solve (plain PyTorch); on a CUDA tensor it
+               launches the hand-written kernel in ops.schur_cuda
+               (csrc/spd_solve_kernel.cu)
   graph      — factor-graph LM solver
+  parallel   — sharded ICP, edge-sharded CG, Schur-elimination solve and
+               distributed reoptimize over S shards on one device
   engine     — online SLAM session engine (keyframe path + pass-boundary
                reoptimize; DPG change detection is not ported yet)
   utils      — checkpoint loading (reads the JAX package's npz), metrics
   io         — synthetic worlds and sequences
 
 Rules: the package imports torch and numpy, never jax or dpg_slam_tpu.
-Every tensor lives on a device the caller chose; nothing picks one.
+Entry points (DpgSlamEngine, load_checkpoint, make_mesh) run on the card
+unless the caller names another device; below them every function works
+on the device of the tensors it is given.
 """
 
 import torch as _torch

@@ -8,8 +8,9 @@ package's one-hot contractions stand in for scatters on the TPU; the
 semantics are the same). The LM solver is a Python loop that reads its
 accept/stop decisions on the host.
 
-Not ported here: ``method="dense_pallas"`` (it needs the SPD kernel K2)
-and ``solve_batched`` (it waits for batch.py) — see ROADMAP.md.
+``method="dense_pallas"`` solves the dense system with ops/schur.spd_solve
+(kernel K2 on a CUDA tensor). Not ported here: ``solve_batched`` (it waits
+for batch.py) — see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from dpg_slam_tpu_torch import geom
+from dpg_slam_tpu_torch.ops import schur
 
 __all__ = [
     "FactorGraph",
@@ -62,7 +64,7 @@ class SolveStats(NamedTuple):
     iterations: int              # accepted LM steps
 
 
-def empty_graph(max_priors: int, max_edges: int, device) -> FactorGraph:
+def empty_graph(max_priors: int, max_edges: int, device="cuda") -> FactorGraph:
     f32, i32 = torch.float32, torch.int32
     return FactorGraph(
         prior_idx=torch.zeros((max_priors,), dtype=i32, device=device),
@@ -364,6 +366,15 @@ def _dense_solve(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor) -> torch.
     return delta.reshape(N, 3)
 
 
+def _dense_pallas_solve(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor) -> torch.Tensor:
+    """_dense_solve through ops/schur.spd_solve (the panel-blocked SPD
+    solve; kernel K2 on a CUDA tensor) with the gradient as the one
+    right-hand side."""
+    N = eq.diag.shape[0]
+    delta = schur.spd_solve(_dense_H(eq, g, damping), eq.rhs.reshape(3 * N, 1))[:, 0]
+    return delta.reshape(N, 3)
+
+
 def _dense_cg_solve(
     eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, iters: int, rel_tol: float = 1e-6,
 ) -> torch.Tensor:
@@ -451,17 +462,14 @@ def solve(
     """Levenberg-Marquardt over the pose graph (the JAX package's solve,
     with its while_loop as a Python loop).
 
-    method: "dense" (Cholesky), "dense_cg" (dense-matvec PCG) or "cg"
-    (block-sparse PCG). Accept when the error drops; damping x0.5 on
+    method: "dense" (Cholesky), "dense_pallas" (the blocked SPD solve of
+    ops/schur, kernel K2 on the card), "dense_cg" (dense-matvec PCG) or
+    "cg" (block-sparse PCG). Accept when the error drops; damping x0.5 on
     accept, x4 on reject, clipped to [1e-9, 1e6]. gradient_tol skips or
     stops when the max-abs gradient is below it; terminate_on_reject stops
     on a rejection after one first-step damping retry (warm solves).
     """
-    if method == "dense_pallas":
-        raise NotImplementedError(
-            "method='dense_pallas' needs the SPD kernel K2, not ported yet (ROADMAP.md Queue 2)"
-        )
-    if method not in ("dense", "dense_cg", "cg"):
+    if method not in ("dense", "dense_pallas", "dense_cg", "cg"):
         raise ValueError(f"unknown solve method {method!r}")
     eq, err0 = _assemble(poses, g, node_mask, robust_delta)
     gnorm = float(eq.rhs.abs().max())
@@ -473,6 +481,8 @@ def solve(
     while it < max_iterations and not done and gnorm > gradient_tol:
         if method == "dense":
             delta = _dense_solve(eq, g, damping)
+        elif method == "dense_pallas":
+            delta = _dense_pallas_solve(eq, g, damping)
         elif method == "dense_cg":
             delta = _dense_cg_solve(eq, g, damping, cg_iterations)
         else:

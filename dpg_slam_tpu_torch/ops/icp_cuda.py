@@ -9,27 +9,21 @@ what bounds it: at B = 9 (a keyframe batch) 9 of the H100's 132 SMs are
 busy and the run is latency-bound; at B ~ 1.7k (the compacted reoptimize
 sweep) it is bound by issue of the P^2 distance sweeps.
 
-Build: ``nvcc`` compiles the source for sm_90a into a shared library with a
-plain C entry point, cached under ``build/kernels/`` by a hash of the
-source and flags, at first use. A missing nvcc or a failed build raises.
+Build: ops/_nvcc.py compiles the source for sm_90a into a shared library
+with a plain C entry point, cached under ``build/kernels/``, at first use.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
 from dpg_slam_tpu_torch.config import PoseGraphParams
+from dpg_slam_tpu_torch.ops import _nvcc
 from dpg_slam_tpu_torch.ops import icp as icp_mod
 
-__all__ = ["LAUNCHES", "build", "icp_align_cuda", "run_kernel"]
+__all__ = ["LAUNCHES", "icp_align_cuda", "run_kernel"]
 
 # Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
@@ -38,46 +32,14 @@ _MASK_COORD = 1e4  # masked points parked at -/+ this: gated out by distance
 _OUT_COLS = 24
 _MAX_POINTS = 4096  # 10 * P floats of shared memory must fit one SM (227 KB)
 
-_SRC = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "icp_kernel.cu"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+_SRC = _nvcc.CSRC / "icp_kernel.cu"
 _LIB = None
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the ICP kernel cannot be built")
-    return path
-
-
-def build() -> pathlib.Path:
-    """Compile the kernel library unless a build of this exact source and
-    flag set exists; returns its path."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"icp_kernel_{tag}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
 
 
 def _load():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(_nvcc.build(_SRC)))
         fn = lib.icp_p2l_launch
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # planes, seeds, out

@@ -36,7 +36,7 @@ def state_to_numpy(state) -> dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in _flat_items(state)}
 
 
-def state_from_numpy(flat: dict[str, np.ndarray], config: DpgConfig, device):
+def state_from_numpy(flat: dict[str, np.ndarray], config: DpgConfig, device="cuda"):
     """Build a SlamState on `device` from a flat checkpoint dict. Fields the
     dict lacks keep their initial values; shapes must match the config."""
     from dpg_slam_tpu_torch.engine import _init_state
@@ -63,9 +63,10 @@ def state_from_numpy(flat: dict[str, np.ndarray], config: DpgConfig, device):
     return rebuild(_init_state(config, device))
 
 
-def load_checkpoint(path: str | pathlib.Path, device):
-    """Restore an engine on `device` from a checkpoint directory
-    (config.json + state.npz, as the JAX package writes them)."""
+def load_checkpoint(path: str | pathlib.Path, device="cuda"):
+    """Restore an engine on `device` (the card unless the caller names
+    another) from a checkpoint directory (config.json + state.npz, as the
+    JAX package writes them)."""
     from dpg_slam_tpu_torch.engine import DpgSlamEngine
 
     path = pathlib.Path(path)

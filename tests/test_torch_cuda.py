@@ -1,5 +1,6 @@
-"""Kernel K1 (csrc/icp_kernel.cu) on a CUDA card against its plain PyTorch
-version, and the port's keyframe path on the card against the CPU.
+"""Kernels K1 (csrc/icp_kernel.cu) and K2 (csrc/spd_solve_kernel.cu) on a
+CUDA card against their plain PyTorch versions, and the port's keyframe
+path, dense_pallas solve and Schur reoptimize on the card against the CPU.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. The file
 imports no JAX, so it runs on a machine without it:
@@ -9,7 +10,10 @@ imports no JAX, so it runs on a machine without it:
 Tolerances are tests/test_icp_pallas.py's (transform atol 5e-4, fitness
 atol 1e-4, covariance rtol 0.05): both form d2 as dx² + dy², but the
 kernel sums in another order, and each pair exits on its own where the
-plain loop runs until the whole batch has frozen.
+plain loop runs until the whole batch has frozen. K2 against
+spd_solve_plain: max |X_k - X_p| <= 1e-4 max |X_p| (two blocked Cholesky
+orders in float32 on damped SPD systems). Card vs CPU runs of the solvers:
+1e-2 m / rad, chip_smoke.py's bound for the engine.
 """
 
 import numpy as np
@@ -19,8 +23,11 @@ import torch
 from dpg_slam_tpu_torch import geom
 from dpg_slam_tpu_torch.config import CapacityParams, DpgConfig, PoseGraphParams, ScanParams
 from dpg_slam_tpu_torch.engine import DpgSlamEngine
+from dpg_slam_tpu_torch.graph import factor_graph as fg
 from dpg_slam_tpu_torch.io import dataset
-from dpg_slam_tpu_torch.ops import icp, icp_cuda
+from dpg_slam_tpu_torch.ops import icp, icp_cuda, schur, schur_cuda
+from dpg_slam_tpu_torch.parallel import distributed_reoptimize, make_mesh
+from dpg_slam_tpu_torch.utils.checkpoint import state_from_numpy, state_to_numpy
 
 
 @pytest.fixture
@@ -120,3 +127,94 @@ def test_keyframe_path_on_card_matches_cpu(cuda):
     (kg, tg, eg), (kc, tc, ec) = runs
     assert kg == kc and eg == ec
     np.testing.assert_allclose(tg, tc, atol=1e-2)
+
+
+def _spd_batch(S, n, m, pad, seed=0):
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(S, n, n))
+    H = A @ A.transpose(0, 2, 1) / n + 3.0 * np.eye(n)
+    if pad:
+        H[:, -pad:, :] = 0.0
+        H[:, :, -pad:] = 0.0
+        H[:, np.arange(n - pad, n), np.arange(n - pad, n)] = 1.0
+    B = rng.normal(size=(S, n, m))
+    return torch.tensor(H, dtype=torch.float32), torch.tensor(B, dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n,m,pad", [(4, 192, 385, 0), (1, 768, 1, 0), (1, 192, 1, 0), (3, 128, 7, 5)])
+def test_spd_kernel_matches_plain_on_card(cuda, S, n, m, pad):
+    H, B = (x.to(cuda) for x in _spd_batch(S, n, m, pad))
+    before = schur_cuda.LAUNCHES
+    X = schur.spd_solve(H, B)
+    torch.cuda.synchronize()
+    assert schur_cuda.LAUNCHES == before + 1
+    ref = schur.spd_solve_plain(H, B)
+    assert (X - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    if pad:  # identity rows pass B through
+        torch.testing.assert_close(X[:, -pad:], B[:, -pad:], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_spd_kernel_rejects_bad_inputs(cuda):
+    H, B = _spd_batch(2, 64, 3, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        schur_cuda.spd_solve_cuda(H, B)
+    H, B = H.to(cuda), B.to(cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        schur_cuda.spd_solve_cuda(H.transpose(1, 2), B)
+    with pytest.raises(ValueError, match="float32"):
+        schur_cuda.spd_solve_cuda(H.double(), B.double())
+    with pytest.raises(ValueError, match="match"):
+        schur_cuda.spd_solve_cuda(H, B[:, :10])
+
+
+@pytest.mark.cuda
+def test_dense_pallas_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(11)
+    N = 64
+    gt = np.cumsum(rng.normal(0.5, 0.1, size=(N, 3)) * [1, 0.2, 0.05], axis=0)
+    pairs = np.array([(i, i + 1) for i in range(N - 1)] + [(0, 20), (10, 40), (25, 63)], np.int32)
+    meas = torch.tensor(np.stack([gt[j] - gt[i] for i, j in pairs]), dtype=torch.float32)
+    init = torch.tensor(gt + rng.normal(0, 0.05, size=(N, 3)), dtype=torch.float32)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        g = fg.empty_graph(4, 256, dev)
+        g = fg.add_prior(g, 0, torch.zeros(3, device=dev), fg.sqrt_info_from_sigmas(torch.full((3,), 0.01, device=dev)))
+        si = fg.sqrt_info_from_sigmas(torch.tensor([0.1, 0.1, 0.05], device=dev)).expand(len(pairs), 3, 3)
+        p = torch.as_tensor(pairs, device=dev)
+        g = fg.add_between_batch(g, p[:, 0], p[:, 1], meas.to(dev), si, torch.ones(len(pairs), dtype=torch.bool, device=dev))
+        before = schur_cuda.LAUNCHES
+        poses, _ = fg.solve(init.to(dev), g, torch.ones(N, dtype=torch.bool, device=dev),
+                            method="dense_pallas", max_iterations=15)
+        assert (schur_cuda.LAUNCHES > before) == (dev.type == "cuda")
+        out.append(poses.cpu())
+    torch.testing.assert_close(out[0], out[1], rtol=0, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_schur_reoptimize_on_card_matches_cpu(cuda):
+    cfg = DpgConfig(
+        scan=ScanParams(num_beams=256),
+        pose_graph=PoseGraphParams(icp_max_points=64, icp_maximum_iterations=20, max_loop_closures_per_node=3),
+        capacity=CapacityParams(max_nodes=64, max_edges=512, max_priors=8),
+    )
+    seq = dataset.simulate_sequence(
+        dataset.make_office_world(), dataset.office_loop_waypoints(), cfg.scan,
+        step=0.5, seed=1, odom_noise_transl=0.02, odom_noise_rot=0.008,
+    )
+    eng = DpgSlamEngine(cfg, "cpu")
+    for t in range(len(seq.scans)):
+        eng.observe_odometry(seq.odometry[t])
+        eng.observe_laser(seq.scans[t])
+    flat = state_to_numpy(eng.state)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        state = state_from_numpy(flat, cfg, dev)
+        before = schur_cuda.LAUNCHES
+        new = distributed_reoptimize(make_mesh(4, dev), cfg, state, solver="schur", pallas_elimination=True)
+        assert (schur_cuda.LAUNCHES > before) == (dev.type == "cuda")
+        out.append(new.poses[: eng.num_nodes()].cpu())
+    d = (out[0] - out[1]).abs()
+    d[:, 2] = torch.remainder(d[:, 2] + np.pi, 2 * np.pi) - np.pi
+    assert d.abs().max().item() <= 1e-2

@@ -203,7 +203,15 @@ def test_edge_overflow_fails_loudly():
 
 
 def test_engine_requires_a_device():
+    """Entry points run on the card unless the caller names a device; the
+    CPU is one argument away."""
+    import inspect
+
+    from dpg_slam_tpu_torch.graph import factor_graph as tfg
+    from dpg_slam_tpu_torch.parallel import make_mesh
+
+    for fn in (teng.DpgSlamEngine, tckpt.load_checkpoint, tckpt.state_from_numpy, make_mesh, tfg.empty_graph):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     _, tcfg = _configs()
-    with pytest.raises(TypeError):
-        teng.DpgSlamEngine(tcfg)  # the caller always names the device
     assert teng.DpgSlamEngine(tcfg, torch.device("cpu")).state.poses.device.type == "cpu"
+    assert teng.DpgSlamEngine(tcfg, device="cpu").device.type == "cpu"

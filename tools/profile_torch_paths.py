@@ -1,0 +1,76 @@
+#!/usr/bin/env python3
+"""Where the card's time goes on the PyTorch port's paths (one NVIDIA GPU).
+
+    python3 tools/profile_torch_paths.py
+
+Runs each path of chip_smoke.py once to warm up, once under torch.profiler
+(CPU + CUDA activity) and once unprofiled, on the committed fixtures:
+keyframe (bench_assets/keyframe continuation, solve_method "dense" and
+"dense_pallas"), reoptimize (bench_assets/session increment_pass, "dense"
+and "dense_pallas") and the 4-shard Schur reoptimize through K2. Prints
+one JSON line per path: unprofiled wall ms, device busy ms (sum of CUDA
+kernel and memcpy intervals on the one stream), idle share of the
+unprofiled wall, kernel launches, and the top kernels by device time.
+The first line is the card's nvidia-smi name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+import chip_smoke as cs  # noqa: E402
+
+PATHS = {
+    "keyframe_dense": lambda: cs.run_keyframes(cs.DEVICE),
+    "keyframe_dense_pallas": lambda: cs.run_keyframes(cs.DEVICE, "dense_pallas"),
+    "reoptimize_dense": lambda: cs.run_reoptimize(cs.DEVICE),
+    "reoptimize_dense_pallas": lambda: cs.run_reoptimize(cs.DEVICE, "dense_pallas"),
+    "schur_4_shards_k2": lambda: cs.session_schur(True),
+}
+
+
+def timed(run) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_torch_paths.py needs a CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    for name, run in PATHS.items():
+        run()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        wall = timed(run)
+        by_name = defaultdict(float)
+        launches = 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] += e.time_range.elapsed_us() / 1e3
+                launches += 1
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(json.dumps({
+            "path": name, "wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall), "device_ops": launches,
+            "top": [[k[:60], v] for k, v in top],
+        }), flush=True)
+
+
+if __name__ == "__main__":
+    main()
