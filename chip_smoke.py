@@ -14,9 +14,14 @@ committed fixtures (1024 beams, 256 ICP points, K = 8, 30 ICP iterations,
   0 context      card name and power limit (nvidia-smi), torch / CUDA versions
   1 build        nvcc builds of K1 and K2
   2 kernel       K1 vs plain on a keyframe's 9-pair batch, the ~1.7k-pair
-                 compacted reoptimize sweep, and a Censi-mode masked batch
+                 compacted reoptimize sweep, a Censi-mode masked batch, and
+                 8 pairs of 256 sources against 2,048 targets (the DPG
+                 local registration's shape)
   2b k2_kernel   K2 vs plain and vs torch.linalg's Cholesky on the inputs
-                 its three paths give it (captured from those paths)
+                 its three paths give it (captured from those paths), with
+                 its launch plan; both factorization layouts (one CTA per
+                 system, many CTAs per system) timed, and the factors they
+                 leave compared
   3 keyframe     bench_assets/keyframe + its 69 continuation scans, on the
                  card and on the CPU (plain versions); kf/s
   4 ate          the office loop simulated at full width, tracked on the card
@@ -210,15 +215,43 @@ def k1_bound(args, out, pg):
     """K1's least time on this batch: per pair, (iterations + 1 final pass)
     sweeps over valid sources x valid targets at 6 ops (row-min: 2 sub,
     2 mul, add, min) + 8 (accumulate: the distance, 3 compares) + 6
-    (col-min, with reciprocal matching) per point pair; bytes: the 7 input
-    planes, the seeds and the 24-float output rows read or written once."""
+    (col-min, with reciprocal matching) per point pair; bytes: the 3 source
+    and 4 target planes, the seeds and the 24-float output rows read or
+    written once."""
     src, src_mask, tgt, tgt_mask = args[:4]
-    B, P = src_mask.shape
+    B, Ps = src_mask.shape
+    Pt = tgt_mask.shape[1]
     passes = out[:, 11].double() + 1.0
     pairs = src_mask.sum(1).double() * tgt_mask.sum(1).double()
     per = 6 + 8 + (6 if pg.icp_use_reciprocal_correspondences else 0)
     ops = float((passes * pairs).sum()) * per
-    return bound(ops, 4.0 * (7 * B * P + 4 * B + 24 * B))
+    return bound(ops, 4.0 * (3 * B * Ps + 4 * B * Pt + 4 * B + 24 * B))
+
+
+def local_reg_batch(B: int = 8, Ps: int = 256, Pt: int = 2048, seed: int = 7):
+    """B pairs at the DPG local registration's shape: Pt target points on
+    the walls of an 8 x 6 m room (2 mm noise), and Ps of them seen from a
+    pose within +-0.3 (m, rad) as the source, with that pose's inverse
+    perturbed by up to 0.05 as the seed. Made with numpy from `seed`."""
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(0, 4, (B, Pt))
+    side = rng.integers(0, 4, (B, Pt))
+    x = np.where(side < 2, t * 2 - 4, np.where(side == 2, -4.0, 4.0))
+    y = np.where(side == 0, -3.0, np.where(side == 1, 3.0, t * 1.5 - 3))
+    tgt = np.stack([x, y], -1) + rng.normal(0, 0.002, (B, Pt, 2))
+    pose = rng.uniform(-0.3, 0.3, (B, 3))
+    pick = np.stack([rng.choice(Pt, Ps, replace=False) for _ in range(B)])
+    c, s = np.cos(pose[:, 2]), np.sin(pose[:, 2])
+    d = np.take_along_axis(tgt, pick[..., None], 1) - pose[:, None, :2]
+    src = np.stack([c[:, None] * d[..., 0] + s[:, None] * d[..., 1],
+                    -s[:, None] * d[..., 0] + c[:, None] * d[..., 1]], -1)
+    seeds = pose + rng.uniform(-0.05, 0.05, (B, 3))
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=DEVICE)  # noqa: E731
+    tgt_t = f32(tgt)
+    tgt_mask = torch.ones((B, Pt), dtype=torch.bool, device=DEVICE)
+    args = (f32(src), torch.ones((B, Ps), dtype=torch.bool, device=DEVICE), tgt_t, tgt_mask, f32(seeds))
+    gate = torch.ones(B, device=DEVICE)
+    return args, icp.estimate_normals(tgt_t, tgt_mask), gate
 
 
 def kernel_phase(cfg: DpgConfig):
@@ -230,10 +263,12 @@ def kernel_phase(cfg: DpgConfig):
     src, src_mask, tgt, tgt_mask, seeds = kf_args
     masked = (src, src_mask & (torch.arange(src.shape[1], device=DEVICE) % 7 != 0), tgt,
               tgt_mask & (torch.arange(tgt.shape[1], device=DEVICE) % 5 != 0), seeds)
+    lr_args, lr_normals, lr_gate = local_reg_batch()
     cases = [
         ("keyframe", kf_args, kf_normals, kf_gate, pg),
         ("reoptimize", ro_args, ro_normals, ro_gate, pg),
         ("censi_masked", masked, kf_normals, kf_gate, censi_pg),
+        ("local_reg_256_2048", lr_args, lr_normals, lr_gate, pg),
     ]
     worst, times = 0.0, {}
     for name, args, normals, gate, p in cases:
@@ -249,11 +284,12 @@ def kernel_phase(cfg: DpgConfig):
         reps = 20 if name == "keyframe" else 3
         ms = cuda_ms(lambda: icp_cuda.icp_align_cuda(*args, p, **kw), reps)
         plain_ms = cuda_ms(lambda: icp.icp_align_plain(*args, p, **kw), reps)
-        planes, kseeds = icp_cuda.pack(*args[:4], normals, args[4], gate)
-        kernel_only_ms = cuda_ms(lambda: icp_cuda.run_kernel(planes, kseeds, p, False), reps)
-        bound_ms, bound_by = k1_bound(args, icp_cuda.run_kernel(planes, kseeds, p, False), p)
-        times[name] = dict(pairs=int(args[0].shape[0]), ms=ms, plain_ms=plain_ms, kernel_only_ms=kernel_only_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
+        packed = icp_cuda.pack(*args[:4], normals, args[4], gate)
+        kernel_only_ms = cuda_ms(lambda: icp_cuda.run_kernel(*packed, p, False), reps)
+        bound_ms, bound_by = k1_bound(args, icp_cuda.run_kernel(*packed, p, False), p)
+        times[name] = dict(pairs=int(args[0].shape[0]), sources=int(args[0].shape[1]), targets=int(args[2].shape[1]),
+                           ms=ms, plain_ms=plain_ms, kernel_only_ms=kernel_only_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
         emit("kernel_time", batch=name, **times[name])
     return worst, times, n_live
 
@@ -418,6 +454,15 @@ def k2_kernel_phase():
         rel_err = abs_err / ref.abs().max().item()
         X = torch.empty_like(B)
         work = torch.empty_like(H)
+        # The two factorization layouts on this input: the factors they
+        # leave in the workspace (the same to the bit by design), and
+        # their kernel-alone times.
+        factors = {}
+        for layout in ("single", "multi"):
+            factors[layout] = torch.empty_like(H)
+            schur_cuda.run_kernel(H, B, torch.empty_like(B), factors[layout], layout)
+        torch.cuda.synchronize()
+        factor_diff = (factors["multi"].tril() - factors["single"].tril()).abs().max().item()
         fast = n * m < 10_000
         reps = 50 if fast else 10
         library = lambda: torch.cholesky_solve(B, torch.linalg.cholesky_ex(H)[0])  # noqa: E731
@@ -426,12 +471,15 @@ def k2_kernel_phase():
         bound_ms, bound_by = bound(2.0 * S * (n ** 3 / 3 + n * n * m), 4.0 * S * (n * n + 2 * n * m))
         out[name] = dict(
             S=S, n=n, m=m, launch_shape=list(schur_cuda.launch_shape(n, m)),
+            launch_plan=schur_cuda.launch_plan(S, n, m)._asdict(), factor_max_abs_diff=factor_diff,
             max_abs_err=abs_err, max_rel_err=rel_err, library_vs_plain_rel=lib_rel,
             cond=torch.linalg.cond(H.double()).max().item(),
             residual_kernel=rel_residual(H, ker, B), residual_plain=rel_residual(H, ref, B),
             residual_library=rel_residual(H, lib_x, B),
             ms=cuda_ms(lambda: schur.spd_solve(H, B), reps),
             kernel_only_ms=cuda_ms(lambda: schur_cuda.run_kernel(H, B, X, work), reps),
+            kernel_single_ms=cuda_ms(lambda: schur_cuda.run_kernel(H, B, X, work, "single"), reps),
+            kernel_multi_ms=cuda_ms(lambda: schur_cuda.run_kernel(H, B, X, work, "multi"), reps),
             plain_ms=cuda_ms(lambda: schur.spd_solve_plain(H, B), 3 if fast else 2),
             library_ms=cuda_ms(library, reps),
             bound_ms=bound_ms, bound_by=bound_by,
@@ -443,6 +491,8 @@ def k2_kernel_phase():
             raise AssertionError(f"{name}: K2 differs from the plain version by {rel_err} > {rel_tol}")
         if not out[name]["residual_kernel"] <= res_tol:
             raise AssertionError(f"{name}: K2's residual {out[name]['residual_kernel']} > {res_tol}")
+        if factor_diff != 0.0:
+            raise AssertionError(f"{name}: the many-CTA factor differs from the one-CTA factor by {factor_diff}")
     return out
 
 
@@ -571,6 +621,7 @@ def main() -> None:
             "bound_ms": ro["bound_ms"],
             "bound_by": ro["bound_by"],
             "library_ms": None,
+            "cases": times,
         },
         {
             "name": K2,
@@ -584,6 +635,10 @@ def main() -> None:
             "bound_ms": k2_main["bound_ms"],
             "bound_by": k2_main["bound_by"],
             "library_ms": k2_main["library_ms"],
+            "cases": {name: {k: v[k] for k in ("S", "n", "m", "launch_plan", "ms", "kernel_only_ms", "kernel_single_ms",
+                                                 "kernel_multi_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                                 "factor_max_abs_diff")}
+                      for name, v in k2.items()},
         },
     ]}), flush=True)
     print(smi, flush=True)

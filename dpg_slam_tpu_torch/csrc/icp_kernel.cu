@@ -20,16 +20,19 @@
 // depend on which other pairs share the launch; the plain version
 // (ops/icp.py) evaluates them the same way.
 //
-// Layout: one CTA per pair. The pair's 7 input planes, the moved source
-// and the col-min array sit in shared memory (10 * P floats; 10 KB at
-// P = 256). Threads stride over points, so P is not tied to blockDim.
+// Layout: one CTA per pair. The source side (x, y, mask and the moved
+// x, y: 5 * Ps floats) and the target side (x, y, normal x, y and the
+// col-min array: 5 * Pt floats) sit in shared memory: 10 KB at
+// Ps = Pt = 256, 46 KB at Ps = 256 against Pt = 2,048 (the DPG local
+// registration). Threads stride over points, so neither count is tied to
+// blockDim.
 // d2 is recomputed in each sweep (col-min, row-min, accumulate) instead of
-// storing P^2 values.
+// storing Ps x Pt values.
 //
 // What bounds it on the H100: at B = 9 (one keyframe's 1 + K pairs) 9 of
 // 132 SMs hold a CTA and the run is latency-bound on the per-iteration
 // barriers and the single-thread 3x3 solve; at B ~ 1.7k (the compacted
-// reoptimize sweep) it is bound by instruction issue of the three P^2
+// reoptimize sweep) it is bound by instruction issue of the three Ps x Pt
 // sweeps per iteration (~10 flops per (i, j) in each). Shared-memory reads
 // in the sweeps are warp-uniform broadcasts, so there are no bank conflicts.
 //
@@ -89,23 +92,23 @@ __device__ __forceinline__ void block_sums(float (&part)[N], int n, float* red, 
 struct Pair {
   const float *sx, *sy, *tx, *ty, *nx, *ny, *sm;  // shared input planes
   float *mx, *my, *colmin;                          // shared scratch
-  int P;
+  int Ps, Pt;
   bool reciprocal;
 };
 
 // Moved source into shared memory; col-min per target when reciprocal.
 __device__ __forceinline__ void transform_and_colmin(const Pair& p, float c, float s,
                                                      float ptx, float pty) {
-  for (int i = threadIdx.x; i < p.P; i += kThreads) {
+  for (int i = threadIdx.x; i < p.Ps; i += kThreads) {
     p.mx[i] = __fadd_rn(__fsub_rn(__fmul_rn(c, p.sx[i]), __fmul_rn(s, p.sy[i])), ptx);
     p.my[i] = __fadd_rn(__fadd_rn(__fmul_rn(s, p.sx[i]), __fmul_rn(c, p.sy[i])), pty);
   }
   __syncthreads();
   if (p.reciprocal) {
-    for (int j = threadIdx.x; j < p.P; j += kThreads) {
+    for (int j = threadIdx.x; j < p.Pt; j += kThreads) {
       const float x = p.tx[j], y = p.ty[j];
       float m = INFINITY;
-      for (int i = 0; i < p.P; ++i) m = fminf(m, sqdist(p.mx[i], p.my[i], x, y));
+      for (int i = 0; i < p.Ps; ++i) m = fminf(m, sqdist(p.mx[i], p.my[i], x, y));
       p.colmin[j] = m;
     }
     __syncthreads();
@@ -122,9 +125,9 @@ __device__ __forceinline__ Match match_point(const Pair& p, int i, float gate_sq
   const float x = p.mx[i], y = p.my[i];
   Match m;
   m.rowmin = INFINITY;
-  for (int j = 0; j < p.P; ++j) m.rowmin = fminf(m.rowmin, sqdist(x, y, p.tx[j], p.ty[j]));
+  for (int j = 0; j < p.Pt; ++j) m.rowmin = fminf(m.rowmin, sqdist(x, y, p.tx[j], p.ty[j]));
   float cnt = 0.f, sx = 0.f, sy = 0.f, snx = 0.f, sny = 0.f;
-  for (int j = 0; j < p.P; ++j) {
+  for (int j = 0; j < p.Pt; ++j) {
     const float d2 = sqdist(x, y, p.tx[j], p.ty[j]);
     if (d2 <= m.rowmin && d2 <= gate_sq && (!p.reciprocal || d2 <= p.colmin[j])) {
       cnt += 1.f;
@@ -196,11 +199,11 @@ __device__ __forceinline__ void add_censi_terms(const Pair& p, int i, const Matc
 }
 
 __global__ void __launch_bounds__(kThreads) icp_p2l_kernel(
-    const float* __restrict__ planes,  // (7, B, P): src x/y (masked at -1e4),
-                                       // tgt x/y (masked at +1e4), normal x/y, src mask
-    const float* __restrict__ seeds,   // (B, 4): tx, ty, th, gate multiplier
-    float* __restrict__ out,           // (B, 24)
-    int B, int P, int max_iterations, int anneal_iters, float max_corr,
+    const float* __restrict__ src_planes,  // (3, B, Ps): src x/y (masked at -1e4), src mask
+    const float* __restrict__ tgt_planes,  // (4, B, Pt): tgt x/y (masked at +1e4), normal x/y
+    const float* __restrict__ seeds,       // (B, 4): tx, ty, th, gate multiplier
+    float* __restrict__ out,               // (B, 24)
+    int B, int Ps, int Pt, int max_iterations, int anneal_iters, float max_corr,
     int reciprocal, float epsilon, float damping, int censi,
     float error_delta_rel_tol) {
   extern __shared__ float smem[];
@@ -211,25 +214,30 @@ __global__ void __launch_bounds__(kThreads) icp_p2l_kernel(
   __shared__ float st[5];
 
   Pair p;
-  float* sm_planes = smem;
-  p.sx = sm_planes;
-  p.sy = p.sx + P;
-  p.tx = p.sy + P;
-  p.ty = p.tx + P;
-  p.nx = p.ty + P;
-  p.ny = p.nx + P;
-  p.sm = p.ny + P;
-  p.mx = smem + 7 * P;
-  p.my = p.mx + P;
-  p.colmin = p.my + P;
-  p.P = P;
+  float* sm_src = smem;            // sx sy sm, then mx my
+  float* sm_tgt = smem + 5 * Ps;   // tx ty nx ny, then colmin
+  p.sx = sm_src;
+  p.sy = p.sx + Ps;
+  p.sm = p.sy + Ps;
+  p.mx = sm_src + 3 * Ps;
+  p.my = p.mx + Ps;
+  p.tx = sm_tgt;
+  p.ty = p.tx + Pt;
+  p.nx = p.ty + Pt;
+  p.ny = p.nx + Pt;
+  p.colmin = sm_tgt + 4 * Pt;
+  p.Ps = Ps;
+  p.Pt = Pt;
   p.reciprocal = reciprocal != 0;
 
   const int b = blockIdx.x;
-  const size_t plane = static_cast<size_t>(B) * P;
-  const float* base = planes + static_cast<size_t>(b) * P;
-  for (int k = 0; k < 7; ++k)
-    for (int i = threadIdx.x; i < P; i += kThreads) sm_planes[k * P + i] = base[k * plane + i];
+  const size_t splane = static_cast<size_t>(B) * Ps, tplane = static_cast<size_t>(B) * Pt;
+  const float* sbase = src_planes + static_cast<size_t>(b) * Ps;
+  const float* tbase = tgt_planes + static_cast<size_t>(b) * Pt;
+  for (int k = 0; k < 3; ++k)
+    for (int i = threadIdx.x; i < Ps; i += kThreads) sm_src[k * Ps + i] = sbase[k * splane + i];
+  for (int k = 0; k < 4; ++k)
+    for (int j = threadIdx.x; j < Pt; j += kThreads) sm_tgt[k * Pt + j] = tbase[k * tplane + j];
   const float gate_mult = seeds[b * 4 + 3];
   if (threadIdx.x == 0) {
     st[0] = seeds[b * 4 + 0];
@@ -251,7 +259,7 @@ __global__ void __launch_bounds__(kThreads) icp_p2l_kernel(
     float part[kSums];
 #pragma unroll
     for (int k = 0; k < kSums; ++k) part[k] = 0.f;
-    for (int i = threadIdx.x; i < P; i += kThreads)
+    for (int i = threadIdx.x; i < Ps; i += kThreads)
       add_p2l_terms(p, i, match_point(p, i, __fmul_rn(gate, gate)), ptx, pty, part);
     block_sums(part, kSums, red, tot);
 
@@ -302,7 +310,7 @@ __global__ void __launch_bounds__(kThreads) icp_p2l_kernel(
   float part[kAll];
 #pragma unroll
   for (int k = 0; k < kAll; ++k) part[k] = 0.f;
-  for (int i = threadIdx.x; i < P; i += kThreads) {
+  for (int i = threadIdx.x; i < Ps; i += kThreads) {
     const Match m = match_point(p, i, __fmul_rn(max_corr, max_corr));
     add_p2l_terms(p, i, m, ftx, fty, part);
     if (censi) add_censi_terms(p, i, m, ftx, fty, c, s, part);
@@ -328,19 +336,20 @@ __global__ void __launch_bounds__(kThreads) icp_p2l_kernel(
 
 // Plain C entry point (bound with ctypes). Launches on `stream`, does not
 // synchronise, returns cudaGetLastError() of the launch.
-extern "C" int icp_p2l_launch(const float* planes, const float* seeds, float* out,
-                              int B, int P, int max_iterations, int anneal_iters,
+extern "C" int icp_p2l_launch(const float* src_planes, const float* tgt_planes,
+                              const float* seeds, float* out,
+                              int B, int Ps, int Pt, int max_iterations, int anneal_iters,
                               float max_corr, int reciprocal, float epsilon,
                               float damping, int censi, float error_delta_rel_tol,
                               void* stream) {
-  const size_t smem = static_cast<size_t>(10) * P * sizeof(float);
+  const size_t smem = static_cast<size_t>(5) * (Ps + Pt) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         icp_p2l_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   icp_p2l_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      planes, seeds, out, B, P, max_iterations, anneal_iters, max_corr, reciprocal,
+      src_planes, tgt_planes, seeds, out, B, Ps, Pt, max_iterations, anneal_iters, max_corr, reciprocal,
       epsilon, damping, censi, error_delta_rel_tol);
   return static_cast<int>(cudaGetLastError());
 }

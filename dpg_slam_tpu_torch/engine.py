@@ -603,10 +603,12 @@ class DpgSlamEngine:
       traj = eng.trajectory()
     """
 
-    def __init__(self, config: DpgConfig, device="cuda", mesh=None):
-        """mesh: optional parallel.mesh.Mesh; the pass-boundary reoptimize
-        then runs parallel.distributed_reoptimize over its shards (the
-        keyframe path is unchanged)."""
+    def __init__(self, config: DpgConfig | None = None, device="cuda", mesh=None):
+        """config: default DpgConfig(), as in the JAX package. mesh:
+        optional parallel.mesh.Mesh; the pass-boundary reoptimize then runs
+        parallel.distributed_reoptimize over its shards (the keyframe path
+        is unchanged)."""
+        config = config if config is not None else DpgConfig()
         self.config = config
         self.device = torch.device(device)
         self.state = _init_state(config, self.device)

@@ -389,7 +389,8 @@ def icp_align(
     """Align a batch of source clouds onto target clouds (the JAX
     package's icp_align interface).
 
-    src/tgt (B, P, 2) float32, masks (B, P) bool, init_guess (B, 3) seed
+    src (B, Ps, 2) and tgt (B, Pt, 2) float32, masks (B, Ps) and (B, Pt)
+    bool, init_guess (B, 3) seed
     pose of src in tgt's frame, gate_multiplier (B,) per-pair coarse gate
     (default: the configured coarse multiplier for every pair).
     """

@@ -12,7 +12,8 @@ atol 1e-4, covariance rtol 0.05): both form d2 as dx² + dy², but the
 kernel sums in another order, and each pair exits on its own where the
 plain loop runs until the whole batch has frozen. K2 against
 spd_solve_plain: max |X_k - X_p| <= 1e-4 max |X_p| (two blocked Cholesky
-orders in float32 on damped SPD systems). Card vs CPU runs of the solvers:
+orders in float32 on damped SPD systems); K2's two factorization layouts
+against each other: equal to the bit. Card vs CPU runs of the solvers:
 1e-2 m / rad, chip_smoke.py's bound for the engine.
 """
 
@@ -96,12 +97,45 @@ def test_kernel_matches_plain_on_card(cuda, case):
 
 
 @pytest.mark.cuda
+def test_kernel_matches_plain_fewer_sources_than_targets(cuda):
+    """The DPG local registration's shape: 8 pairs of 256 sources against
+    2,048 targets, at test_kernel_matches_plain_on_card's tolerances."""
+    B = 8
+    src, smask, tgt, tmask, _, true_pose = _room_batch(B, seed=37, n=2048)
+    src, smask = src[:, ::8].contiguous(), smask[:, ::8].contiguous()
+    seeds = true_pose + 0.05
+    pg = PoseGraphParams()
+    args = [x.to(cuda) for x in (src, smask, tgt, tmask, seeds)] + [pg]
+    kw = dict(
+        tgt_normals=icp.estimate_normals(args[2], args[3]), gate_multiplier=torch.ones(B, device=cuda),
+        min_correspondences=10, fitness_threshold=0.25, min_overlap=pg.icp_min_overlap,
+        sensor_noise_std=pg.icp_sensor_noise_std,
+    )
+    before = icp_cuda.LAUNCHES
+    ker = icp.icp_align(*args, **kw)
+    torch.cuda.synchronize()
+    assert icp_cuda.LAUNCHES == before + 1
+    ref = icp.icp_align_plain(*args, **kw)
+    np.testing.assert_allclose(ker.transform.cpu(), ref.transform.cpu(), atol=5e-4)
+    np.testing.assert_allclose(ker.fitness.cpu(), ref.fitness.cpu(), atol=1e-4)
+    assert torch.equal(ker.converged, ref.converged) and bool(ker.converged.all())
+    np.testing.assert_allclose(ker.covariance.cpu(), ref.covariance.cpu(), rtol=0.05, atol=1e-7)
+    np.testing.assert_allclose(ker.transform.cpu(), true_pose, atol=5e-2)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_bad_inputs(cuda):
-    planes = torch.zeros((7, 2, 8), device=cuda)
+    src_planes, tgt_planes = torch.zeros((3, 2, 8), device=cuda), torch.zeros((4, 2, 16), device=cuda)
+    pg = PoseGraphParams()
     with pytest.raises(ValueError, match="seeds"):
-        icp_cuda.run_kernel(planes, torch.zeros((3, 4), device=cuda), PoseGraphParams(), censi=False)
+        icp_cuda.run_kernel(src_planes, tgt_planes, torch.zeros((3, 4), device=cuda), pg, censi=False)
     with pytest.raises(ValueError, match="float32"):
-        icp_cuda.run_kernel(planes.double(), torch.zeros((2, 4), device=cuda), PoseGraphParams(), censi=False)
+        icp_cuda.run_kernel(src_planes.double(), tgt_planes, torch.zeros((2, 4), device=cuda), pg, censi=False)
+    with pytest.raises(ValueError, match="target planes"):
+        icp_cuda.run_kernel(src_planes, tgt_planes[:, :1], torch.zeros((2, 4), device=cuda), pg, censi=False)
+    with pytest.raises(ValueError, match="Ps = 8, Pt = 12000"):
+        icp_cuda.run_kernel(src_planes, torch.zeros((4, 2, 12000), device=cuda), torch.zeros((2, 4), device=cuda), pg,
+                            censi=False)
 
 
 @pytest.mark.cuda
@@ -153,6 +187,40 @@ def test_spd_kernel_matches_plain_on_card(cuda, S, n, m, pad):
     assert (X - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
     if pad:  # identity rows pass B through
         torch.testing.assert_close(X[:, -pad:], B[:, -pad:], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n,m", [(1, 768, 1), (1, 512, 3)])
+def test_spd_multi_cta_factor_equals_single(cuda, S, n, m):
+    """The many-CTA factorization leaves the one-CTA factor to the bit (each
+    element's sums run in the same order), and the same solution."""
+    H, B = (x.to(cuda) for x in _spd_batch(S, n, m, 0))
+    out = {}
+    for layout in ("single", "multi"):
+        X, work = torch.empty_like(B), torch.empty_like(H)
+        schur_cuda.run_kernel(H, B, X, work, layout)
+        out[layout] = (X, work.tril())
+    torch.cuda.synchronize()
+    assert schur_cuda.launch_plan(S, n, m).factorization == "multi"
+    assert torch.equal(out["single"][1], out["multi"][1])
+    assert torch.equal(out["single"][0], out["multi"][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [192, 300])
+@pytest.mark.parametrize("m", [1, 7, 31])
+def test_spd_few_columns_match_plain_on_card(cuda, n, m):
+    """The warp-per-column substitution (m < 32), after the one-CTA
+    (n = 192) and the many-CTA (n = 300) factorization, against
+    spd_solve_plain at the K2 tolerance; padded slots pass B through."""
+    H, B = (x.to(cuda) for x in _spd_batch(2, n, m, 3))
+    plan = schur_cuda.launch_plan(2, n, m)
+    assert plan.small_m and plan.factorization == ("single" if n == 192 else "multi")
+    X = schur.spd_solve(H, B)
+    torch.cuda.synchronize()
+    ref = schur.spd_solve_plain(H, B)
+    assert (X - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    torch.testing.assert_close(X[:, -3:], B[:, -3:], rtol=0, atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -215,3 +215,16 @@ def test_engine_requires_a_device():
     _, tcfg = _configs()
     assert teng.DpgSlamEngine(tcfg, torch.device("cpu")).state.poses.device.type == "cpu"
     assert teng.DpgSlamEngine(tcfg, device="cpu").device.type == "cpu"
+
+
+def test_engine_config_defaults_like_jax():
+    """DpgSlamEngine() takes DpgConfig() when no config is given, as the JAX
+    package's engine does."""
+    import inspect
+
+    assert inspect.signature(teng.DpgSlamEngine).parameters["config"].default is None
+    assert inspect.signature(jeng.DpgSlamEngine).parameters["config"].default is None
+    eng = teng.DpgSlamEngine(device="cpu")
+    assert eng.config == TorchConfig()
+    assert eng.state.poses.device.type == "cpu"
+    assert eng.state.poses.shape[0] == TorchConfig().capacity.max_nodes

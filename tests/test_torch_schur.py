@@ -25,7 +25,7 @@ from dpg_slam_tpu.ops.schur_pallas import spd_solve_pallas
 from dpg_slam_tpu.parallel import make_mesh as jmake_mesh
 from dpg_slam_tpu.parallel.partition import spatial_blocks as jspatial_blocks
 from dpg_slam_tpu.parallel.schur import schur_solve as jschur_solve
-from dpg_slam_tpu_torch.ops import schur
+from dpg_slam_tpu_torch.ops import schur, schur_cuda
 from dpg_slam_tpu_torch.parallel import make_mesh, schur_solve
 from dpg_slam_tpu_torch.parallel.partition import spatial_blocks
 
@@ -83,6 +83,34 @@ def test_spd_solve_rejects_other_devices_and_shapes():
         schur.spd_solve(torch.eye(6), torch.zeros((5, 2)))
     with pytest.raises(ValueError, match="panel"):
         schur.spd_solve_plain(torch.eye(6), torch.zeros((6, 2)), panel=4)
+
+
+@pytest.mark.parametrize(
+    "S,n,m,plan",
+    [
+        # The inputs of K2's three paths.
+        (1, 192, 1, ("single", 64, 1, True)),     # dense_pallas keyframe solve (bucket 64)
+        (1, 768, 1, ("multi", 64, 1, True)),      # dense_pallas reoptimize (bucket 256)
+        (4, 192, 385, ("single", 64, 193, False)),  # Schur interiors, 4 shards
+        # Edges of the two thresholds (n 224 | 225, m 31 | 32).
+        (1, 224, 1, ("single", 64, 1, True)),
+        (1, 225, 1, ("multi", 64, 1, True)),
+        (1, 256, 1, ("multi", 64, 1, True)),
+        (1, 224, 31, ("single", 64, 31, True)),
+        (1, 225, 32, ("multi", 64, 32, False)),
+        (1, 256, 385, ("multi", 64, 193, False)),
+        (2, 256, 31, ("multi", 64, 31, True)),
+        (1, 512, 3, ("multi", 64, 3, True)),
+    ],
+)
+def test_k2_launch_plan(S, n, m, plan):
+    """The CUDA wrapper's dispatch: the many-CTA factorization from n = 225,
+    warp-per-column substitution below m = 32, panel and column chunk as
+    before."""
+    got = schur_cuda.launch_plan(S, n, m)
+    assert tuple(got) == plan
+    assert (got.panel, got.cols) == schur_cuda.launch_shape(n, m)
+    assert schur_cuda._smem_bytes(n, got.panel, got.cols, got.small_m) <= schur_cuda._SMEM_LIMIT
 
 
 def _laps_graph(laps=4, per_lap=32, seed=5):

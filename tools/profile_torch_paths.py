@@ -10,7 +10,8 @@ keyframe (bench_assets/keyframe continuation, solve_method "dense" and
 and "dense_pallas") and the 4-shard Schur reoptimize through K2. Prints
 one JSON line per path: unprofiled wall ms, device busy ms (sum of CUDA
 kernel and memcpy intervals on the one stream), idle share of the
-unprofiled wall, kernel launches, and the top kernels by device time.
+unprofiled wall, kernel launches, and the top kernels by device time
+(name, ms, launches).
 The first line is the card's nvidia-smi name and power limit.
 """
 
@@ -58,17 +59,19 @@ def main() -> None:
             torch.cuda.synchronize()
         wall = timed(run)
         by_name = defaultdict(float)
+        count = defaultdict(int)
         launches = 0
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 by_name[e.name] += e.time_range.elapsed_us() / 1e3
+                count[e.name] += 1
                 launches += 1
         busy = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         print(json.dumps({
             "path": name, "wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall), "device_ops": launches,
-            "top": [[k[:60], v] for k, v in top],
+            "top": [[k[:60], v, count[k]] for k, v in top],
         }), flush=True)
 
 
