@@ -14,9 +14,12 @@ committed fixtures (1024 beams, 256 ICP points, K = 8, 30 ICP iterations,
   0 context      card name and power limit (nvidia-smi), torch / CUDA versions
   1 build        nvcc builds of K1 and K2
   2 kernel       K1 vs plain on a keyframe's 9-pair batch, the ~1.7k-pair
-                 compacted reoptimize sweep, a Censi-mode masked batch, and
-                 8 pairs of 256 sources against 2,048 targets (the DPG
-                 local registration's shape)
+                 compacted reoptimize sweep, a Censi-mode masked batch, 8
+                 pairs of 256 sources against 2,048 targets (the DPG local
+                 registration's shape) and the keyframe batch tiled 16 times
+                 (batched mode's shape at 16 sessions); on each, K1's launch
+                 plan (cluster size C), its time at every C the shape
+                 admits, and its rows at the planned C against C = 1
   2b k2_kernel   K2 vs plain and vs torch.linalg's Cholesky on the inputs
                  its three paths give it (captured from those paths), with
                  its launch plan; both factorization layouts (one CTA per
@@ -94,9 +97,13 @@ SCHUR_ELIM_TOL = 1e-3
 SCHUR_SINGLE_TOL = 2e-2
 SHARDS = 4
 # H100 SXM published peaks (NVIDIA data sheet): FP32 outside the
-# tensor cores and HBM3 bandwidth.
+# tensor cores (an FMA counted as two flops) and HBM3 bandwidth.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# FP32 instruction rate of an H100 SXM: 128 lanes x 132 SMs x 1.98 GHz
+# (boost clock). K1's distance arithmetic has no FMA (its d2 helper
+# forbids contraction), so each of its operations takes one instruction.
+PEAK_FP32_INSTR = 128 * 132 * 1.98e9
 
 K1, K2 = "icp_point_to_line", "spd_solve"
 # Launches on the paths (phases 3-7), summed over the phases.
@@ -133,9 +140,10 @@ def counted(run):
     return out, got
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """(least milliseconds, what bounds it) on the card's published peaks."""
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, rate: float = PEAK_FP32) -> tuple[float, str]:
+    """(least milliseconds, what bounds it) on the card's published peaks:
+    `flops` at `rate` operations per second, `nbytes` at HBM bandwidth."""
+    t_ops, t_bytes = flops / rate, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -213,9 +221,10 @@ def compare(name, ker, ref, pg, seeds, gate):
 
 def k1_bound(args, out, pg):
     """K1's least time on this batch: per pair, (iterations + 1 final pass)
-    sweeps over valid sources x valid targets at 6 ops (row-min: 2 sub,
-    2 mul, add, min) + 8 (accumulate: the distance, 3 compares) + 6
-    (col-min, with reciprocal matching) per point pair; bytes: the 3 source
+    x valid sources x valid targets point pairs, each at 7 operations (the
+    distance once: 2 sub, 2 mul, add; a compare against the source's
+    running min; a min into the target's col-min, with reciprocal
+    matching; 6 without) at the FP32 instruction rate; bytes: the 3 source
     and 4 target planes, the seeds and the 24-float output rows read or
     written once."""
     src, src_mask, tgt, tgt_mask = args[:4]
@@ -223,9 +232,9 @@ def k1_bound(args, out, pg):
     Pt = tgt_mask.shape[1]
     passes = out[:, 11].double() + 1.0
     pairs = src_mask.sum(1).double() * tgt_mask.sum(1).double()
-    per = 6 + 8 + (6 if pg.icp_use_reciprocal_correspondences else 0)
+    per = 6 + (1 if pg.icp_use_reciprocal_correspondences else 0)
     ops = float((passes * pairs).sum()) * per
-    return bound(ops, 4.0 * (3 * B * Ps + 4 * B * Pt + 4 * B + 24 * B))
+    return bound(ops, 4.0 * (3 * B * Ps + 4 * B * Pt + 4 * B + 24 * B), PEAK_FP32_INSTR)
 
 
 def local_reg_batch(B: int = 8, Ps: int = 256, Pt: int = 2048, seed: int = 7):
@@ -254,6 +263,47 @@ def local_reg_batch(B: int = 8, Ps: int = 256, Pt: int = 2048, seed: int = 7):
     return args, icp.estimate_normals(tgt_t, tgt_mask), gate
 
 
+def tie_count(packed, rows, b: int, gate: float) -> int:
+    """The most targets tied exactly at one source's row-min inside `gate`
+    in pair b at its output row's transform (d2 formed as K1 forms it,
+    each product and sum rounded apart; cos and sin from torch)."""
+    src_planes, tgt_planes, _ = packed
+    tx, ty, th = rows[b, 0], rows[b, 1], rows[b, 2]
+    c, s = torch.cos(th), torch.sin(th)
+    sx, sy = src_planes[0, b], src_planes[1, b]
+    mx, my = (c * sx - s * sy) + tx, (s * sx + c * sy) + ty
+    dx = mx[:, None] - tgt_planes[0, b][None]
+    dy = my[:, None] - tgt_planes[1, b][None]
+    d2 = dx * dx + dy * dy
+    tied = (d2 == d2.min(1, keepdim=True).values) & (d2 <= gate * gate)
+    return int(tied.sum(1).max())
+
+
+def layouts(name, packed, pg, censi: bool, reps: int):
+    """K1's launch plan on this batch, its kernel-alone time at every
+    cluster size the shape admits, and the largest difference between the
+    rows of C = 1 and of the planned C; a differing pair is printed with
+    its tie count and must show three or more tied targets."""
+    _, B, Ps = packed[0].shape
+    Pt = packed[1].shape[2]
+    plan = icp_cuda.launch_plan(B, Ps, Pt, torch.cuda.get_device_properties(0).multi_processor_count)
+    sizes = [C for C in icp_cuda.CLUSTERS if C == 1 or Ps <= 256]
+    rows = {C: icp_cuda.run_kernel(*packed, pg, censi, cluster=C) for C in sizes}
+    torch.cuda.synchronize()
+    diff = (rows[plan] - rows[1]).abs().amax(1)
+    for b in torch.nonzero(diff).flatten().tolist():
+        ties = tie_count(packed, rows[1], b, pg.icp_max_correspondence_distance)
+        emit("k1_layout_differs", batch=name, pair=b, ties=ties, row_c1=rows[1][b].tolist(),
+             row_planned=rows[plan][b].tolist())
+        if ties < 3:
+            raise AssertionError(f"{name}: pair {b} differs between C = 1 and C = {plan} without a three-way tie")
+    out = dict(plan=plan, rows_max_abs_diff=diff.max().item(),
+               kernel_ms_by_cluster={C: cuda_ms(lambda: icp_cuda.run_kernel(*packed, pg, censi, cluster=C), reps)
+                                     for C in sizes})
+    emit("k1_layouts", batch=name, pairs=B, sources=Ps, targets=Pt, **out)
+    return out
+
+
 def kernel_phase(cfg: DpgConfig):
     """Phase 2: K1 against the plain version at the main path's shapes."""
     pg = cfg.pose_graph
@@ -264,11 +314,13 @@ def kernel_phase(cfg: DpgConfig):
     masked = (src, src_mask & (torch.arange(src.shape[1], device=DEVICE) % 7 != 0), tgt,
               tgt_mask & (torch.arange(tgt.shape[1], device=DEVICE) % 5 != 0), seeds)
     lr_args, lr_normals, lr_gate = local_reg_batch()
+    x16 = tuple(t.repeat(16, *([1] * (t.ndim - 1))) for t in kf_args)
     cases = [
         ("keyframe", kf_args, kf_normals, kf_gate, pg),
         ("reoptimize", ro_args, ro_normals, ro_gate, pg),
         ("censi_masked", masked, kf_normals, kf_gate, censi_pg),
         ("local_reg_256_2048", lr_args, lr_normals, lr_gate, pg),
+        ("keyframe_x16", x16, kf_normals.repeat(16, 1, 1), kf_gate.repeat(16), pg),
     ]
     worst, times = 0.0, {}
     for name, args, normals, gate, p in cases:
@@ -279,17 +331,18 @@ def kernel_phase(cfg: DpgConfig):
         torch.cuda.synchronize()
         ref = icp.icp_align_plain(*args, p, **kw)
         worst = max(worst, compare(name, ker, ref, p, args[4], gate))
+        reps = 20 if name in ("keyframe", "censi_masked") else 3
+        packed = icp_cuda.pack(*args[:4], normals, args[4], gate)
+        lay = layouts(name, packed, p, icp.is_censi_mode(p), max(reps, 10))
         if name == "censi_masked":
             continue
-        reps = 20 if name == "keyframe" else 3
         ms = cuda_ms(lambda: icp_cuda.icp_align_cuda(*args, p, **kw), reps)
         plain_ms = cuda_ms(lambda: icp.icp_align_plain(*args, p, **kw), reps)
-        packed = icp_cuda.pack(*args[:4], normals, args[4], gate)
         kernel_only_ms = cuda_ms(lambda: icp_cuda.run_kernel(*packed, p, False), reps)
         bound_ms, bound_by = k1_bound(args, icp_cuda.run_kernel(*packed, p, False), p)
         times[name] = dict(pairs=int(args[0].shape[0]), sources=int(args[0].shape[1]), targets=int(args[2].shape[1]),
                            ms=ms, plain_ms=plain_ms, kernel_only_ms=kernel_only_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
+                           bound_by=bound_by, **lay)
         emit("kernel_time", batch=name, **times[name])
     return worst, times, n_live
 

@@ -13,7 +13,8 @@ kernel sums in another order, and each pair exits on its own where the
 plain loop runs until the whole batch has frozen. K2 against
 spd_solve_plain: max |X_k - X_p| <= 1e-4 max |X_p| (two blocked Cholesky
 orders in float32 on damped SPD systems); K2's two factorization layouts
-against each other: equal to the bit. Card vs CPU runs of the solvers:
+against each other, and K1's cluster layouts against its one-CTA layout:
+equal to the bit. Card vs CPU runs of the solvers:
 1e-2 m / rad, chip_smoke.py's bound for the engine.
 """
 
@@ -121,6 +122,63 @@ def test_kernel_matches_plain_fewer_sources_than_targets(cuda):
     assert torch.equal(ker.converged, ref.converged) and bool(ker.converged.all())
     np.testing.assert_allclose(ker.covariance.cpu(), ref.covariance.cpu(), rtol=0.05, atol=1e-7)
     np.testing.assert_allclose(ker.transform.cpu(), true_pose, atol=5e-2)
+
+
+def _packed(cuda, case):
+    """K1's packed inputs for one of the bit-equality cases: 9 pairs
+    (Gauss-Newton, or Censi with masked points) or 8 pairs of 256 sources
+    against 2,048 targets."""
+    pg = PoseGraphParams(icp_covariance_mode="censi") if case == "censi_masked" else PoseGraphParams()
+    if case == "local_reg":
+        src, smask, tgt, tmask, _, true_pose = _room_batch(8, seed=37, n=2048)
+        src, smask, seeds = src[:, ::8].contiguous(), smask[:, ::8].contiguous(), true_pose + 0.05
+    else:
+        src, smask, tgt, tmask, seeds, _ = _room_batch(9, seed=31)
+        if case == "censi_masked":
+            smask[:, 200:] = False
+            tmask[:, 220:] = False
+    src, smask, tgt, tmask, seeds = (x.to(cuda) for x in (src, smask, tgt, tmask, seeds))
+    gate = torch.full((src.shape[0],), pg.icp_coarse_gate_multiplier, device=cuda)
+    return icp_cuda.pack(src, smask, tgt, tmask, icp.estimate_normals(tgt, tmask), seeds, gate), pg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gn", "censi_masked", "local_reg"])
+def test_kernel_clusters_equal_one_cta_to_the_bit(cuda, case):
+    """Every cluster size gives the one-CTA layout's (B, 24) rows to the
+    bit: min is exact and the sums run in the same order (see the kernel
+    source)."""
+    packed, pg = _packed(cuda, case)
+    rows = {C: icp_cuda.run_kernel(*packed, pg, icp.is_censi_mode(pg), cluster=C) for C in icp_cuda.CLUSTERS}
+    torch.cuda.synchronize()
+    for C in (2, 4, 8):
+        assert torch.equal(rows[C], rows[1]), C
+
+
+@pytest.mark.cuda
+def test_kernel_launch_plan_launches(cuda):
+    packed, pg = _packed(cuda, "gn")
+    _, B, Ps = packed[0].shape
+    plan = icp_cuda.launch_plan(B, Ps, packed[1].shape[2], torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert plan > 1
+    before = icp_cuda.LAUNCHES
+    planned = icp_cuda.run_kernel(*packed, pg, False)
+    forced = icp_cuda.run_kernel(*packed, pg, False, cluster=plan)
+    torch.cuda.synchronize()
+    assert icp_cuda.LAUNCHES == before + 2
+    assert torch.equal(planned, forced) and bool(torch.isfinite(planned).all())
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_bad_cluster(cuda):
+    packed, pg = _packed(cuda, "gn")
+    for C in (3, 16):
+        with pytest.raises(ValueError, match="cluster"):
+            icp_cuda.run_kernel(*packed, pg, False, cluster=C)
+    wide = (torch.zeros((3, 2, 300), device=cuda), torch.zeros((4, 2, 300), device=cuda), torch.zeros((2, 4), device=cuda))
+    with pytest.raises(ValueError, match="Ps = 300"):
+        icp_cuda.run_kernel(*wide, pg, False, cluster=2)
+    assert icp_cuda.launch_plan(2, 300, 300, 132) == 1
 
 
 @pytest.mark.cuda

@@ -248,3 +248,24 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         icp_cuda.run_kernel(torch.zeros((3, 1, 8)), torch.zeros((4, 1, 16)), torch.zeros((1, 4)), TorchPG(),
                             censi=False)
+
+
+@pytest.mark.parametrize(
+    "B,Ps,Pt,want",
+    [
+        (9, 256, 256, 8),  # a keyframe's 1 + K pairs
+        (8, 256, 2048, 8),  # the DPG local registration
+        (1728, 256, 256, 1),  # the compacted reoptimize sweep
+        (144, 256, 256, 4),  # batched mode at 16 sessions
+        (82, 256, 256, 8),
+        (100, 256, 256, 4),
+        (300, 256, 256, 2),
+        (4, 512, 512, 1),  # more sources than one CTA's threads
+        (2, 256, 9800, 1),  # a cluster's shared memory would not fit
+    ],
+)
+def test_kernel_launch_plan(B, Ps, Pt, want):
+    """K1's cluster size for B pairs of Ps sources against Pt targets on a
+    132-SM card (chip_smoke.py phase 2 measures every size the shape
+    admits)."""
+    assert icp_cuda.launch_plan(B, Ps, Pt, 132) == want

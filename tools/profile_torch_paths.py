@@ -10,8 +10,8 @@ keyframe (bench_assets/keyframe continuation, solve_method "dense" and
 and "dense_pallas") and the 4-shard Schur reoptimize through K2. Prints
 one JSON line per path: unprofiled wall ms, device busy ms (sum of CUDA
 kernel and memcpy intervals on the one stream), idle share of the
-unprofiled wall, kernel launches, and the top kernels by device time
-(name, ms, launches).
+unprofiled wall, kernel launches, the top kernels by device time
+(name, ms, launches), and the device ms and launches of K1 and K2.
 The first line is the card's nvidia-smi name and power limit.
 """
 
@@ -37,6 +37,9 @@ PATHS = {
     "reoptimize_dense_pallas": lambda: cs.run_reoptimize(cs.DEVICE, "dense_pallas"),
     "schur_4_shards_k2": lambda: cs.session_schur(True),
 }
+
+# The port's hand-written kernels, by the names of their CUDA kernels.
+KERNELS = {"K1": ("icp_p2l_kernel",), "K2": ("spd_solve_kernel", "chol_panel_kernel", "chol_trailing_kernel")}
 
 
 def timed(run) -> float:
@@ -68,10 +71,14 @@ def main() -> None:
                 launches += 1
         busy = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        ours = {k: [sum(v for n, v in by_name.items() if any(m in n for m in marks)),
+                    sum(c for n, c in count.items() if any(m in n for m in marks))]
+                for k, marks in KERNELS.items()}
         print(json.dumps({
             "path": name, "wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall), "device_ops": launches,
             "top": [[k[:60], v, count[k]] for k, v in top],
+            "kernels_ms_launches": ours,
         }), flush=True)
 
 
