@@ -36,8 +36,19 @@ committed fixtures (1024 beams, 256 ICP points, K = 8, 30 ICP iterations,
                  Schur elimination through K2, against torch.linalg's
                  elimination and the single-card reoptimize; and an engine
                  built with the mesh
+  8 offline      process_sequence over phase 3's scans, plain and pipelined,
+                 with the default solve and "dense_pallas"; kf/s beside
+                 phase 3's, keyframes and poses against phase 3's run
+  9 batched      process_sessions_batched at the JAX package's configuration
+                 of record (16 simulated sessions of 3 office laps, K = 8,
+                 "lanes_chol", a solve every 32 keyframes): aggregate kf/s
+                 (median of 3 after a warm run), lane ATE, K1's launches and
+                 batch sizes, host syncs inside the step loop (must be 0);
+                 9b two one-lap lanes against process_sequence; 9c K1 on a
+                 captured 144-pair step against plain, and K2 beside
+                 torch.linalg on a captured (16, 384, 1) lanes system
 
-Each path phase (3-7) runs with the kernels' launch counts set to 0 just
+Each path phase (3-9) runs with the kernels' launch counts set to 0 just
 before it and read just after. Each phase prints one JSON line; any failed
 check raises, so the exit code is non-zero. The last lines are the
 kernels' record, the card's nvidia-smi line and {"ok": true, "device":
@@ -52,13 +63,16 @@ import pathlib
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 import dpg_slam_tpu_torch  # noqa: F401  (sets the float32 matmul policy)
+from dpg_slam_tpu_torch import batch as batch_mod
 from dpg_slam_tpu_torch import engine as eng_mod
 from dpg_slam_tpu_torch.config import DpgConfig
+from dpg_slam_tpu_torch.graph import factor_graph as fg
 from dpg_slam_tpu_torch.io import dataset
 from dpg_slam_tpu_torch.ops import _nvcc, icp, icp_cuda, schur, schur_cuda
 from dpg_slam_tpu_torch.parallel import distributed_reoptimize, make_mesh
@@ -96,6 +110,21 @@ K2_RESIDUAL = 1e-5
 SCHUR_ELIM_TOL = 1e-3
 SCHUR_SINGLE_TOL = 2e-2
 SHARDS = 4
+# Offline: the pipelined schedule within 0.2 m of the plain one
+# (tests/test_engine.py::test_pipelined_sequence_close_to_online).
+PIPELINED_TOL = 0.2
+# Batched mode at the JAX package's configuration of record (bench.py's
+# BATCHED_* and build_batched_sessions): 16 sessions of 3 office laps at
+# 0.25 m steps, seeds 11-26, edge capacity 1,536, "lanes_chol", a solve
+# every 32 keyframes, 5 LM steps; the median of BATCH_REPEATS timed runs
+# after a warm one. Lane ATE below tests/test_batch.py's 0.25 m; lanes
+# against process_sequence within its 2e-3 (tests/test_batch.py).
+BATCH_SESSIONS, BATCH_LAPS, BATCH_STEP, BATCH_SEED0 = 16, 3, 0.25, 11
+BATCH_METHOD, BATCH_STRIDE, BATCH_GN, BATCH_MAX_EDGES = "lanes_chol", 32, 5, 1536
+BATCH_REPEATS = 3
+LANE_ATE_MAX = 0.25
+LANE_POSE_TOL = 2e-3
+SPREAD_RUNS = 3
 # H100 SXM published peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores (an FMA counted as two flops) and HBM3 bandwidth.
 PEAK_FP32 = 67e12
@@ -629,6 +658,292 @@ def schur_phase(ro_dense, n_live):
             raise AssertionError(f"{key}: {out[key]} > {SCHUR_SINGLE_TOL}")
 
 
+# --- phase 8: the offline sequence mode ----------------------------------------
+
+def run_offline(solve_method: str | None = None, pipelined: bool = False):
+    """process_sequence over the keyframe fixture's continuation scans."""
+    eng = load_checkpoint(ASSETS / "keyframe", DEVICE)
+    if solve_method is not None:
+        eng.solve_method = solve_method
+    with np.load(ASSETS / "keyframe" / "continuation.npz") as cont:
+        scans, odom = cont["scans"], cont["odometry"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mask = eng.process_sequence(odom, scans, pipelined=pipelined)
+    torch.cuda.synchronize()
+    return eng, mask, time.perf_counter() - t0
+
+
+def offline_phase(kf_dense):
+    """Phase 8: process_sequence plain and pipelined, with the default
+    solve and with "dense_pallas", against phase 3's online run."""
+    online, kfs, online_secs = kf_dense
+    run_offline()  # warm-up: the full-capacity solve's first use
+    plain = {}
+    for solve in (None, "dense_pallas"):
+        for pipelined in (False, True):
+            (eng, mask, secs), got = counted(lambda: run_offline(solve, pipelined))
+            name = f"{'pipelined' if pipelined else 'plain'}_{solve or 'default'}"
+            idx = np.flatnonzero(mask).tolist()
+            if idx != kfs:
+                raise AssertionError(f"offline {name}: keyframes {idx} differ from the online run's {kfs}")
+            if got[K1] < len(kfs) or (solve == "dense_pallas" and got[K2] < len(kfs)):
+                raise AssertionError(f"offline {name}: launches {got} for {len(kfs)} keyframes")
+            out = dict(run=name, keyframes=len(idx), seconds=secs, kf_per_s=len(idx) / secs,
+                       online_kf_per_s=len(kfs) / online_secs, k1_launches=got[K1], k2_launches=got[K2],
+                       consecutive_keyframes=int((mask[1:] & mask[:-1]).sum()),
+                       **check_same_run(f"offline {name}", eng, online))
+            if pipelined:
+                d = np.linalg.norm(eng.trajectory()[:, :2] - plain[solve].trajectory()[:, :2], axis=1)
+                out["vs_plain_max_m"] = float(d.max())
+                if not d.max() < PIPELINED_TOL:
+                    raise AssertionError(f"offline {name}: {d.max()} m from the plain schedule")
+            else:
+                plain[solve] = eng
+            emit("offline", **out)
+
+
+# --- phase 9: the session-batched mode -----------------------------------------
+
+def batched_config() -> DpgConfig:
+    cfg = DpgConfig.from_json((ASSETS / "keyframe" / "config.json").read_text())
+    return cfg.replace(capacity=dataclasses.replace(cfg.capacity, max_edges=BATCH_MAX_EDGES))
+
+
+def batched_sessions(cfg: DpgConfig, n_sessions: int, laps: int):
+    """n_sessions simulated sessions of `laps` office loops at BATCH_STEP
+    m steps, odometry and scan noise from seeds BATCH_SEED0, +1, ...:
+    ([(odometry, scans)], [ground truth])."""
+    world = dataset.make_office_world()
+    wps = dataset.office_loop_waypoints()
+    wps = np.vstack([wps] + [wps[1:]] * (laps - 1))
+    seqs = [dataset.simulate_sequence(world, wps, cfg.scan, step=BATCH_STEP, seed=BATCH_SEED0 + i,
+                                      odom_noise_transl=0.02, odom_noise_rot=0.008)
+            for i in range(n_sessions)]
+    return [(s.odometry, s.scans) for s in seqs], [s.ground_truth for s in seqs]
+
+
+def lane_ates(cfg, states, sessions, gts, counts, align: bool = False) -> list[float]:
+    """Each lane's ATE against its ground truth in the anchored frame (as
+    the tests measure it), or after a best-fit SE(2) alignment."""
+    out = []
+    for i, (odom, _) in enumerate(sessions):
+        kf_idx = np.nonzero(batch_mod.keyframe_schedule(cfg, odom))[0][: counts[i]]
+        poses = batch_mod.session_state(states, i).poses[: counts[i]].cpu().numpy()
+        out.append(float(ate_rmse(poses, to_anchor_frame(gts[i][kf_idx]), align=align)))
+    return out
+
+
+def run_batched(cfg, sessions, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, counts = batch_mod.process_sessions_batched(cfg, sessions, device=DEVICE, **kw)
+    torch.cuda.synchronize()
+    return states, counts, time.perf_counter() - t0
+
+
+class KernelBatches:
+    """Records the pair count of every K1 launch inside the block."""
+
+    def __enter__(self):
+        self.sizes, real = [], icp_cuda.run_kernel
+
+        def record(src_planes, *args, **kwargs):
+            self.sizes.append(int(src_planes.shape[1]))
+            return real(src_planes, *args, **kwargs)
+
+        self.real, icp_cuda.run_kernel = real, record
+        return self
+
+    def __exit__(self, *exc):
+        icp_cuda.run_kernel = self.real
+
+
+def count_syncs(run):
+    """(run(), number of host syncs it made), by torch's sync debug mode."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def captured_step_loop(cfg, sessions, capture_step: int):
+    """The batched step loop alone (schedule, stacked states and uploads
+    made before it), under sync debug mode; captures K1's input at step
+    `capture_step` and the first lanes Cholesky system. Returns (host
+    syncs inside the loop, K1 input, (H, B))."""
+    steps, counts, bucket, method = batch_mod._schedule(cfg, sessions, None, BATCH_METHOD, BATCH_STRIDE)
+    states = batch_mod._stack_states(cfg, len(sessions), DEVICE)
+    steps = [torch.as_tensor(x, device=DEVICE) for x in steps]
+    box, calls = {}, [0]
+    real_align, real_solve = icp.icp_align, fg._dense_solve_lanes
+
+    def align(*args, **kwargs):
+        if calls[0] == capture_step:
+            box["k1"] = ([a.clone() if torch.is_tensor(a) else a for a in args],
+                         {k: v.clone() if torch.is_tensor(v) else v for k, v in kwargs.items()})
+        calls[0] += 1
+        return real_align(*args, **kwargs)
+
+    def solve(eq, g, damping):
+        if "k2" not in box:
+            S, N = eq.diag.shape[:2]
+            box["k2"] = (fg._dense_H(eq, g, damping).detach().clone(), eq.rhs.reshape(S, 3 * N, 1).clone())
+        return real_solve(eq, g, damping)
+
+    icp.icp_align, fg._dense_solve_lanes = align, solve
+    torch.cuda.synchronize()
+    try:
+        _, syncs = count_syncs(lambda: batch_mod._process_sessions_batched(
+            cfg, states, *steps, method, bucket, BATCH_STRIDE, BATCH_GN))
+    finally:
+        icp.icp_align, fg._dense_solve_lanes = real_align, real_solve
+    return syncs, box["k1"], box["k2"]
+
+
+def batched_k1_case(k1_input):
+    """Phase 9c: K1 against the plain version on a captured batched step."""
+    args, kw = k1_input
+    pg = args[5]
+    kw = dict(kw, min_correspondences=10, fitness_threshold=0.25, min_overlap=pg.icp_min_overlap,
+              sensor_noise_std=pg.icp_sensor_noise_std)
+    ker = icp_cuda.icp_align_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    ref = icp.icp_align_plain(*args, **kw)
+    err = compare("batched_step", ker, ref, pg, args[4], kw["gate_multiplier"])
+    packed = icp_cuda.pack(*args[:4], kw["tgt_normals"], args[4], kw["gate_multiplier"])
+    lay = layouts("batched_step", packed, pg, False, 10)
+    bound_ms, bound_by = k1_bound(args, icp_cuda.run_kernel(*packed, pg, False), pg)
+    case = dict(pairs=int(args[0].shape[0]), sources=int(args[0].shape[1]), targets=int(args[2].shape[1]),
+                live_pairs=int(args[3].any(1).sum()),
+                ms=cuda_ms(lambda: icp_cuda.icp_align_cuda(*args, **kw), 10),
+                plain_ms=cuda_ms(lambda: icp.icp_align_plain(*args, **kw), 3),
+                kernel_only_ms=cuda_ms(lambda: icp_cuda.run_kernel(*packed, pg, False), 10),
+                bound_ms=bound_ms, bound_by=bound_by, **lay)
+    emit("kernel_time", batch="batched_step", **case)
+    return err, case
+
+
+def batched_k2_case(H, B):
+    """K2 and torch.linalg on the lanes Cholesky system of a batched solve
+    (a record: the lanes solve stays on torch.linalg, as in the JAX
+    package): the batched library call, with the lanes its cholesky_ex
+    reports failed, and the lane-by-lane form the solve runs; the host
+    syncs of each."""
+    S, n, _ = H.shape
+    ker = schur.spd_solve(H, B)
+    torch.cuda.synchronize()
+    ref = schur.spd_solve_plain(H, B)
+    library = lambda: torch.cholesky_solve(B, torch.linalg.cholesky_ex(H)[0])  # noqa: E731
+
+    def lanes_form():
+        out = []
+        for s in range(S):
+            L, info = torch.linalg.cholesky_ex(H[s])
+            out.append(torch.where(info == 0, torch.cholesky_solve(B[s], L), float("nan")))
+        return torch.stack(out)
+
+    scale = ref.abs().max()
+    lanes_rel = ((lanes_form() - ref).abs().max() / scale).item()
+    abs_err = (ker - ref).abs().max().item()
+    bound_ms, bound_by = bound(2.0 * S * (n ** 3 / 3 + n * n), 4.0 * S * (n * n + 2 * n))
+    case = dict(
+        S=S, n=n, m=1, launch_plan=schur_cuda.launch_plan(S, n, 1)._asdict(), max_abs_err=abs_err,
+        max_rel_err=abs_err / scale.item(), lanes_form_vs_plain_rel=lanes_rel,
+        library_vs_plain_rel=((library() - ref).abs().max() / scale).item(),
+        library_failed_lanes=int((torch.linalg.cholesky_ex(H)[1] != 0).sum()),
+        lanes_form_failed_lanes=sum(int(torch.linalg.cholesky_ex(H[s])[1] != 0) for s in range(S)),
+        residual_kernel=rel_residual(H, ker, B), residual_lanes_form=rel_residual(H, lanes_form(), B),
+        ms=cuda_ms(lambda: schur.spd_solve(H, B), 20), plain_ms=cuda_ms(lambda: schur.spd_solve_plain(H, B), 2),
+        library_ms=cuda_ms(library, 20), lanes_form_ms=cuda_ms(lanes_form, 20),
+        library_syncs=count_syncs(library)[1], lanes_form_syncs=count_syncs(lanes_form)[1],
+        bound_ms=bound_ms, bound_by=bound_by,
+    )
+    emit("k2_kernel", case="batched_lanes", **case)
+    if not case["max_rel_err"] <= max(K2_REL, 2.0 * lanes_rel):
+        raise AssertionError(f"batched lanes: K2 differs from the plain version by {case['max_rel_err']}")
+    if case["lanes_form_syncs"] != 0:
+        raise AssertionError("the lanes solve's Cholesky reads the host")
+    return case
+
+
+def batched_phase(single_stream_kf_per_s: float):
+    """Phase 9: the batched mode at the configuration of record; 9b two
+    one-lap lanes against process_sequence; 9c K1 on a captured step."""
+    cfg = batched_config()
+    t0 = time.perf_counter()
+    sessions, gts = batched_sessions(cfg, BATCH_SESSIONS, BATCH_LAPS)
+    sim_secs = time.perf_counter() - t0
+    kw = dict(solve_method=BATCH_METHOD, solve_stride=BATCH_STRIDE, solve_gn_iterations=BATCH_GN)
+    run_batched(cfg, sessions, **kw)  # warm-up
+    secs, launches, sizes = [], [], set()
+    for _ in range(BATCH_REPEATS):
+        with KernelBatches() as kb:
+            (states, counts, dt), got = counted(lambda: run_batched(cfg, sessions, **kw))
+        secs.append(dt)
+        launches.append(got[K1])
+        sizes |= set(kb.sizes)
+    steps = -(-max(counts) // BATCH_STRIDE) * BATCH_STRIDE
+    ates = lane_ates(cfg, states, sessions, gts, counts)
+    syncs, k1_input, (H, B) = captured_step_loop(cfg, sessions, capture_step=steps // 2)
+    _, probe = count_syncs(lambda: torch.ones(1, device=DEVICE).sum().item())  # the counter sees a sync
+    median = float(np.median(secs))
+    out = dict(sessions=len(sessions), laps=BATCH_LAPS, scans_per_session=len(sessions[0][1]),
+               keyframes=sum(counts), keyframes_per_lane=counts, steps=steps, method=BATCH_METHOD,
+               stride=BATCH_STRIDE, gn_iterations=BATCH_GN, max_edges=BATCH_MAX_EDGES,
+               lanes_cholesky=list(H.shape), seconds=secs, kf_per_s=sum(counts) / median,
+               single_stream_kf_per_s=single_stream_kf_per_s, mean_lane_ate_m=float(np.mean(ates)),
+               max_lane_ate_m=max(ates), k1_launches_per_run=launches, k1_batch_sizes=sorted(sizes),
+               step_loop_host_syncs=syncs, sync_counter_probe=probe, simulate_seconds=sim_secs)
+    emit("batched", **out, lane_ates_m=ates)
+    if max(ates) >= LANE_ATE_MAX:
+        raise AssertionError(f"lane ATE {max(ates)} m >= {LANE_ATE_MAX}")
+    if any(n != steps for n in launches) or sizes != {len(sessions) * (1 + cfg.pose_graph.max_loop_closures_per_node)}:
+        raise AssertionError(f"K1 launches {launches} (batch sizes {sorted(sizes)}) for {steps} steps")
+    if syncs != 0 or probe < 1:
+        raise AssertionError(f"{syncs} host syncs inside the batched step loop (probe {probe})")
+
+    # 9b: two one-lap lanes at solve_stride 1 against process_sequence on
+    # the card. Float atomics in index_add_ move repeated runs on the card;
+    # where the largest spread among three runs of each exceeds 2e-3, the
+    # bound is twice it.
+    pair, _ = batched_sessions(cfg, 2, 1)
+    (runs, got) = counted(lambda: [run_batched(cfg, pair)[:2] for _ in range(SPREAD_RUNS)])
+    engines = []
+    for _ in range(SPREAD_RUNS):
+        lane_engines = []
+        for odom, scans in pair:
+            eng = eng_mod.DpgSlamEngine(cfg, DEVICE)
+            eng._dpg_enabled = False
+            eng.process_sequence(odom, scans)
+            lane_engines.append(eng)
+        engines.append(lane_engines)
+    lanes = [[batch_mod.session_state(st, i) for i in range(2)] for st, _ in runs]
+    spread = 0.0
+    for r in range(SPREAD_RUNS):
+        for q in range(r):
+            for i, n in enumerate(runs[0][1]):
+                spread = max(spread, pose_diff(lanes[r][i].poses[:n], lanes[q][i].poses[:n]),
+                             pose_diff(engines[r][i].state.poses[:n], engines[q][i].state.poses[:n]))
+    tol = LANE_POSE_TOL if spread <= LANE_POSE_TOL else 2.0 * spread
+    diffs = []
+    for lane, eng, n in zip(lanes[0], engines[0], runs[0][1]):
+        same = (n == eng.num_nodes() and int(lane.graph.num_edges) == int(eng.state.graph.num_edges)
+                and int(lane.graph.num_priors) == int(eng.state.graph.num_priors))
+        if not same:
+            raise AssertionError(f"batched lane and process_sequence differ in counts: {n} vs {eng.num_nodes()}")
+        diffs.append(pose_diff(lane.poses[:n], eng.state.poses[:n]))
+    emit("batched_vs_sequence", lanes=2, keyframes=runs[0][1], max_pose_diff=max(diffs), repeat_spread=spread,
+         bound=tol, k1_launches=got[K1])
+    if max(diffs) > tol:
+        raise AssertionError(f"batched lanes differ from process_sequence by {max(diffs)} > {tol}")
+    return out, batched_k1_case(k1_input), batched_k2_case(H, B)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -655,6 +970,9 @@ def main() -> None:
     ro_dense = reoptimize_phase(n_live)
     dense_pallas_phase(kf_dense, ro_dense, n_live)
     schur_phase(ro_dense, n_live)
+    offline_phase(kf_dense)
+    _, (batched_err, batched_k1), batched_k2 = batched_phase(len(kf_dense[1]) / kf_dense[2])
+    times["batched_step"] = batched_k1
     for name, launches in LAUNCHED.items():
         if launches == 0:
             raise AssertionError(f"the paths never launched {name}")
@@ -668,7 +986,7 @@ def main() -> None:
             "source": "dpg_slam_tpu_torch/csrc/icp_kernel.cu",
             "replaces": "dpg_slam_tpu/ops/icp_pallas.py:170",
             "launches": LAUNCHED[K1],
-            "max_abs_err": worst,
+            "max_abs_err": max(worst, batched_err),
             "ms": ro["ms"],
             "plain_ms": ro["plain_ms"],
             "bound_ms": ro["bound_ms"],
@@ -682,7 +1000,7 @@ def main() -> None:
             "source": "dpg_slam_tpu_torch/csrc/spd_solve_kernel.cu",
             "replaces": "dpg_slam_tpu/ops/schur_pallas.py:247",
             "launches": LAUNCHED[K2],
-            "max_abs_err": max(v["max_abs_err"] for v in k2.values()),
+            "max_abs_err": max(max(v["max_abs_err"] for v in k2.values()), batched_k2["max_abs_err"]),
             "ms": k2_main["ms"],
             "plain_ms": k2_main["plain_ms"],
             "bound_ms": k2_main["bound_ms"],
@@ -691,7 +1009,7 @@ def main() -> None:
             "cases": {name: {k: v[k] for k in ("S", "n", "m", "launch_plan", "ms", "kernel_only_ms", "kernel_single_ms",
                                                  "kernel_multi_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                                                  "factor_max_abs_diff")}
-                      for name, v in k2.items()},
+                      for name, v in k2.items()} | {"batched_lanes": batched_k2},
         },
     ]}), flush=True)
     print(smi, flush=True)

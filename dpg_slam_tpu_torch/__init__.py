@@ -15,15 +15,18 @@ module layout so each module's counterpart is found by path:
   graph      — factor-graph LM solver
   parallel   — sharded ICP, edge-sharded CG, Schur-elimination solve and
                distributed reoptimize over S shards on one device
-  engine     — online SLAM session engine (keyframe path + pass-boundary
-               reoptimize; DPG change detection is not ported yet)
+  engine     — SLAM session engine: online keyframe path, offline
+               process_sequence and the pass-boundary reoptimize (DPG
+               change detection is not ported yet)
+  batch      — session-batched mode: S sessions' keyframes a step, their
+               ICP pairs in one call (process_sessions_batched)
   utils      — checkpoint loading (reads the JAX package's npz), metrics
   io         — synthetic worlds and sequences
 
 Rules: the package imports torch and numpy, never jax or dpg_slam_tpu.
-Entry points (DpgSlamEngine, load_checkpoint, make_mesh) run on the card
-unless the caller names another device; below them every function works
-on the device of the tensors it is given.
+Entry points (DpgSlamEngine, process_sessions_batched, load_checkpoint,
+make_mesh) run on the card unless the caller names another device; below
+them every function works on the device of the tensors it is given.
 """
 
 import torch as _torch
@@ -43,6 +46,7 @@ from dpg_slam_tpu_torch.config import (  # noqa: E402
     VisualizationParams,
 )
 from dpg_slam_tpu_torch import geom, scan  # noqa: E402
+from dpg_slam_tpu_torch.batch import process_sessions_batched, session_state  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -54,4 +58,6 @@ __all__ = [
     "VisualizationParams",
     "geom",
     "scan",
+    "process_sessions_batched",
+    "session_state",
 ]

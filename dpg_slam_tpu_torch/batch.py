@@ -1,0 +1,451 @@
+"""Session-batched mode: S independent sessions through one keyframe loop
+— the port of dpg_slam_tpu/batch.py, the mode of record.
+
+A single session's keyframe is a long chain of small operations, and on
+the card one session leaves the device mostly idle. Here every step runs
+one keyframe of each of S sessions (lanes), with the JAX package's two
+moves:
+
+1.  **Host keyframe schedule.** The keyframe gate (shouldProcessLaser,
+    dpg_slam.cc:577-589) reads only the odometry stream, so
+    `keyframe_schedule` replicates it in numpy and `pack_sessions`
+    compacts each session to its keyframes, padded to the longest.
+2.  **Cross-session ICP fusion.** Each step assembles every lane's
+    (1+K)-pair ICP batch and runs them as one `icp_align` call of
+    S·(1+K) pairs: one launch of kernel K1 on the card.
+
+The stacked state is a SlamState whose leaves carry a leading lane axis
+S. A step writes each lane's new node row and factor slots in place, at
+(lane, row); a padding lane (no keyframe this step) writes back what its
+slots hold, so no (S, N, ...) tensor is copied, no index leaves its array
+(the JAX package drops out-of-bounds writes instead), and padding lanes
+keep their graph and gate scalars. The solve is the lane-batched LM
+(`graph.factor_graph.solve_batched`). With the lanes solve methods no
+step reads the host: the host reads before the loop (the schedule, the
+node bucket) and after it.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from dpg_slam_tpu_torch import engine as eng
+from dpg_slam_tpu_torch import geom
+from dpg_slam_tpu_torch.config import DpgConfig
+from dpg_slam_tpu_torch.engine import SlamState
+from dpg_slam_tpu_torch.graph import factor_graph as fg
+from dpg_slam_tpu_torch.ops import icp
+
+__all__ = [
+    "keyframe_schedule",
+    "pack_sessions",
+    "process_sessions_batched",
+    "session_state",
+]
+
+_LANES_METHODS = ("lanes_chol", "lanes_cg")
+
+
+def keyframe_schedule(cfg: DpgConfig, odometry: np.ndarray) -> np.ndarray:
+    """Host (numpy) replica of the keyframe gate over one odometry stream
+    (`_observe_odometry` + `_should_process`): the first scan of a pass
+    always processes; afterwards a scan processes when the odometry
+    distance since the last keyframe exceeds min_dist_between_nodes or its
+    heading change exceeds min_angle_between_nodes. Returns the (T,) bool
+    keyframe mask."""
+    pg = cfg.pose_graph
+    odom = np.asarray(odometry, np.float64)
+    T = odom.shape[0]
+    mask = np.zeros((T,), bool)
+    initialized = False
+    odom_at_last = np.zeros(3)
+    cum = 0.0
+    first = True
+    for t in range(T):
+        o = odom[t]
+        if initialized:
+            cum += float(np.hypot(o[0] - odom_at_last_obs[0], o[1] - odom_at_last_obs[1]))
+        else:
+            odom_at_last = o  # the first odometry fixes the gate's frame
+            initialized = True
+        odom_at_last_obs = o
+        ang = abs(np.angle(np.exp(1j * (o[2] - odom_at_last[2]))))
+        if first or cum > pg.min_dist_between_nodes or ang > pg.min_angle_between_nodes:
+            mask[t] = True
+            first = False
+            cum = 0.0
+            odom_at_last = o
+    return mask
+
+
+def pack_sessions(cfg: DpgConfig, sessions: list[tuple[np.ndarray, np.ndarray]], max_keyframes: int | None = None):
+    """Compact S sessions' scan streams to their keyframes and pad them to
+    a common length, time-major.
+
+    sessions: (odometry (T_s, 3), scans (T_s, B)) per session;
+    max_keyframes: cap per session (default: node capacity). Each session
+    is also capped by a worst-case edge budget (2 + K edges a keyframe),
+    with a warning where that cap binds.
+
+    Returns host arrays (kf_odom (Km, S, 3) f32, kf_scans (Km, S, B) f32,
+    kf_valid (Km, S) bool) and the per-session keyframe counts."""
+    cap_nodes = cfg.capacity.max_nodes if max_keyframes is None else max_keyframes
+    edges_worst = 2 + cfg.pose_graph.max_loop_closures_per_node
+    # Conservative: the sequential engine's live gate counts the edges a
+    # keyframe actually added, so on edge-tight configs lanes can stop
+    # earlier than the engine would.
+    edges_cap = cfg.capacity.max_edges // edges_worst
+    cap = min(cap_nodes, edges_cap)
+    B = cfg.scan.num_beams
+    kf_os, kf_ss, counts = [], [], []
+    for si, (odom, scans) in enumerate(sessions):
+        odom = np.asarray(odom, np.float32)
+        scans = np.asarray(scans, np.float32)
+        if scans.shape[1] != B:
+            raise ValueError(f"expected (T, {B}) scans, got {scans.shape}")
+        idx_all = np.nonzero(keyframe_schedule(cfg, odom))[0]
+        if len(idx_all) > cap and edges_cap < cap_nodes:
+            warnings.warn(
+                f"pack_sessions: session {si} truncated to {cap} keyframes by the worst-case "
+                f"edge budget (max_edges // {edges_worst}); the sequential engine's live gate may "
+                "have accepted more; raise capacity.max_edges for exact per-lane parity",
+                stacklevel=2,
+            )
+        idx = idx_all[:cap]
+        kf_os.append(odom[idx])
+        kf_ss.append(scans[idx])
+        counts.append(len(idx))
+    Km = max(counts)
+    S = len(sessions)
+    kf_odom = np.zeros((Km, S, 3), np.float32)
+    kf_scans = np.zeros((Km, S, B), np.float32)
+    kf_valid = np.zeros((Km, S), bool)
+    for s in range(S):
+        n = counts[s]
+        kf_odom[:n, s] = kf_os[s]
+        kf_scans[:n, s] = kf_ss[s]
+        kf_valid[:n, s] = True
+    return kf_odom, kf_scans, kf_valid, counts
+
+
+# ---------------------------------------------------------------------------
+# Stacked states
+# ---------------------------------------------------------------------------
+
+def _tree_map(fn, state):
+    """fn over every tensor of a SlamState (graph included)."""
+    return type(state)(*(_tree_map(fn, x) if hasattr(x, "_fields") else fn(x) for x in state))
+
+
+def _stack_states(cfg: DpgConfig, n_sessions: int, device="cuda") -> SlamState:
+    """n_sessions fresh session states stacked on a leading lane axis."""
+    return _tree_map(lambda x: x.unsqueeze(0).repeat((n_sessions,) + (1,) * x.ndim), eng._init_state(cfg, device))
+
+
+def session_state(states: SlamState, i: int) -> SlamState:
+    """Lane i of a stacked SlamState (views of its tensors)."""
+    return _tree_map(lambda x: x[i], states)
+
+
+# ---------------------------------------------------------------------------
+# One keyframe of every lane
+# ---------------------------------------------------------------------------
+
+def _put_rows(t: torch.Tensor, lane: torch.Tensor, row: torch.Tensor, valid: torch.Tensor, value) -> None:
+    """t[lane, row] = value in place for valid lanes; the others write
+    back their own row."""
+    old = t[lane, row]
+    t[lane, row] = torch.where(valid.view((-1,) + (1,) * (old.ndim - 1)), value, old)
+
+
+class _Append(NamedTuple):
+    """Where each lane's kept rows land in a fixed-capacity factor array,
+    packed into consecutive slots from the lane's count on (the packing
+    of fg.add_between_batch)."""
+
+    order: torch.Tensor  # (S, W) each row's place in the packed window: kept rows first, in order
+    write: torch.Tensor  # (S, W) window slot j takes a kept row and lies inside the capacity
+    slot: torch.Tensor   # (S, W) target slot, clamped into the capacity
+    src: torch.Tensor    # (S, W) window entry each target slot takes its value from
+    count: torch.Tensor  # (S,) int32 kept rows; the count grows by all of them
+
+
+def _append_plan(count: torch.Tensor, keep: torch.Tensor, cap: int) -> _Append:
+    S, W = keep.shape
+    win = torch.arange(W, device=keep.device)
+    k = keep.to(torch.int64)
+    n = k.sum(dim=1)
+    slot = count.to(torch.int64)[:, None] + win
+    # Window slots past the capacity are dropped (as add_between_batch
+    # drops them); clamped, they all land on slot cap - 1 and take the
+    # value of the window entry that owns it, so every write there agrees.
+    src = torch.clamp(torch.minimum(win, cap - 1 - count.to(torch.int64)[:, None]), min=0)
+    return _Append(
+        order=torch.where(keep, torch.cumsum(k, dim=1) - k, W + win),
+        write=(win < n[:, None]) & (slot < cap),
+        slot=torch.clamp(slot, max=cap - 1),
+        src=src,
+        count=n.to(torch.int32),
+    )
+
+
+def _append_rows(t: torch.Tensor, plan: _Append, rows: torch.Tensor) -> None:
+    """Write (S, W, ...) rows into t (S, cap, ...) in place by plan."""
+    S, W = plan.order.shape
+    lane = torch.arange(S, device=t.device)[:, None]
+    tail = (1,) * (rows.ndim - 2)
+    packed = torch.zeros((S, 2 * W) + rows.shape[2:], dtype=t.dtype, device=t.device)
+    packed.scatter_(1, plan.order.view((S, W) + tail).expand(rows.shape), rows.to(t.dtype))
+    new = torch.where(plan.write.view((S, W) + tail), packed[:, :W], t[lane, plan.slot])
+    t[lane, plan.slot] = torch.take_along_dim(new, plan.src.view((S, W) + tail), dim=1)
+
+
+def _lanes_keyframe(cfg: DpgConfig, states: SlamState, odom: torch.Tensor, ranges: torch.Tensor,
+                    valid: torch.Tensor) -> SlamState:
+    """One keyframe of every valid lane (engine._keyframe_frontend per
+    lane, without the solve): odom (S, 3), ranges (S, B), valid (S,).
+    The node rows and factor slots of `states` are written in place; the
+    returned state carries the new counts and gate scalars. All lanes'
+    ICP pairs go through one icp_align call; a padding lane's pairs have
+    every point masked and their results are not used."""
+    pg = cfg.pose_graph
+    K1 = 1 + pg.max_loop_closures_per_node
+    S, N = states.poses.shape[:2]
+    dev = states.poses.device
+    lane = torch.arange(S, device=dev)
+    obs = eng._observe_odometry(cfg, states, odom)
+    is_first = obs.first_scan_for_pass
+    new_idx = obs.num_nodes.to(torch.int64)
+    prec = new_idx - 1  # -1 at a lane's first node: indexes the last slot, its pairs gated out below
+
+    # Pose estimate and node write (createNode, dpg_slam.cc:488-513).
+    odom_displ = geom.between(obs.odom_at_last_node, obs.prev_odom)
+    prev_pose = torch.where((new_idx > 0)[:, None], states.poses[lane, torch.clamp(prec, min=0)], 0.0)
+    est_pose = torch.where(is_first[:, None], 0.0, geom.compose(prev_pose, odom_displ))
+    labels, pts, mask, normals = eng._prepare_cloud(cfg, ranges)
+    row = torch.clamp(new_idx, max=N - 1)
+    for name, value in (
+        ("poses", est_pose), ("odom_poses", obs.prev_odom), ("pass_ids", obs.pass_number),
+        ("node_active", True), ("ranges", ranges), ("labels", labels), ("sector_active", True),
+        ("cloud", pts), ("cloud_mask", mask), ("cloud_normals", normals),
+    ):
+        _put_rows(getattr(states, name), lane, row, valid, value)
+
+    # Successive pair + top-K loop-closure candidates (_icp_pairs_for_new_node).
+    dist = torch.linalg.norm(states.poses[..., 0:2] - est_pose[:, None, 0:2], dim=-1)
+    same_pass = states.pass_ids == obs.pass_number[:, None]
+    thr = torch.where(
+        same_pass,
+        pg.maximum_node_dist_within_pass_scan_comparison,
+        pg.maximum_node_dist_across_passes_scan_comparison,
+    )
+    idx = torch.arange(N, device=dev)
+    gap_ok = ~same_pass | (new_idx[:, None] - idx >= pg.min_loop_closure_node_gap)
+    cand_ok = (idx < prec[:, None]) & (dist <= thr) & gap_ok
+    cand_idx = eng._top_k_ascending(torch.where(cand_ok, dist, float("inf")), K1 - 1)
+    tgt_idx = torch.cat([prec[:, None], cand_idx], dim=1)
+    tgt_valid = torch.cat([torch.ones((S, 1), dtype=torch.bool, device=dev), torch.gather(cand_ok, 1, cand_idx)], dim=1)
+    at = (lane[:, None], tgt_idx)
+    tgt_pose = states.poses[at]
+    succ = torch.arange(K1, device=dev) == 0
+    gate = torch.where(succ, 1.0, pg.icp_coarse_gate_multiplier).expand(S, K1)
+    src_mask = mask & valid[:, None]
+
+    def flat(x):
+        return x.reshape((S * K1,) + x.shape[2:])
+
+    res = icp.icp_align(
+        flat(pts[:, None].expand(S, K1, -1, -1)),
+        flat(src_mask[:, None].expand(S, K1, -1)),
+        flat(states.cloud[at]),
+        flat(states.cloud_mask[at] & tgt_valid[..., None] & valid[:, None, None]),
+        flat(geom.between(tgt_pose, est_pose[:, None].expand(S, K1, 3))),
+        pg,
+        tgt_normals=flat(states.cloud_normals[at]),
+        gate_multiplier=flat(gate),
+    )
+    transform = res.transform.view(S, K1, 3)
+    converged = res.converged.view(S, K1)
+
+    # Closure gating and vote (_keyframe_frontend_post).
+    tgt_valid = tgt_valid & (new_idx > 0)[:, None]
+    if not pg.non_successive_scan_constraints:
+        tgt_valid = tgt_valid & succ
+    if pg.closure_consistency_transl is not None:
+        voted = eng._closure_consistency_votes(
+            cfg, tgt_pose[:, 1:], transform[:, 1:], est_pose, tgt_valid[:, 1:] & converged[:, 1:]
+        )
+        tgt_valid = torch.cat([tgt_valid[:, :1], voted], dim=1)
+
+    # Factors: the prior of a pass-first node, then the odometry factor and
+    # the observation factors (successive always, closures when
+    # converged), in the single-stream engine's slot order.
+    g = states.graph
+    pplan = _append_plan(g.num_priors, (is_first & valid)[:, None], g.prior_idx.shape[1])
+    prior_si = fg.sqrt_info_from_sigmas(eng._prior_sigmas(cfg, dev))
+    _append_rows(g.prior_idx, pplan, new_idx[:, None])
+    _append_rows(g.prior_val, pplan, torch.zeros((S, 1, 3), device=dev))
+    _append_rows(g.prior_sqrt_info, pplan, prior_si.expand(S, 1, 3, 3))
+    odo_keep = ~is_first & pg.odometry_constraints
+    keep = torch.cat([odo_keep[:, None], tgt_valid & (converged | succ)], dim=1) & valid[:, None]
+    eplan = _append_plan(g.num_edges, keep, g.edge_idx.shape[1])
+    pair = torch.stack([torch.cat([prec[:, None], tgt_idx], dim=1), new_idx[:, None].expand(S, K1 + 1)], dim=-1)
+    odo_si = fg.sqrt_info_from_sigmas(eng._motion_model_sigmas(cfg, odom_displ))
+    _append_rows(g.edge_idx, eplan, pair)
+    _append_rows(g.edge_meas, eplan, torch.cat([odom_displ[:, None], transform], dim=1))
+    _append_rows(
+        g.edge_sqrt_info, eplan,
+        torch.cat([odo_si[:, None], fg.sqrt_info_from_covariance(res.covariance).view(S, K1, 3, 3)], dim=1),
+    )
+
+    v3 = valid[:, None]
+    return states._replace(
+        graph=g._replace(num_priors=g.num_priors + pplan.count, num_edges=g.num_edges + eplan.count),
+        num_nodes=states.num_nodes + valid.to(torch.int32),
+        prev_odom=torch.where(v3, obs.prev_odom, states.prev_odom),
+        odom_at_last_node=torch.where(v3, obs.prev_odom, states.odom_at_last_node),
+        cumulative_dist=torch.where(valid, 0.0, states.cumulative_dist),
+        odom_initialized=states.odom_initialized | valid,
+        first_scan_for_pass=states.first_scan_for_pass & ~valid,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The solve and the loop
+# ---------------------------------------------------------------------------
+
+def _solve_choice(cfg: DpgConfig, bucket: int) -> str:
+    """Default solve: the lane-batched LM with Cholesky up to a 128-node
+    bucket, fixed-iteration PCG above; the engine's block-sparse CG per
+    lane past 1,024 node slots (the dense assembly's cliff)."""
+    if cfg.capacity.max_nodes > 1024:
+        return "cg"
+    return "lanes_chol" if bucket <= 128 else "lanes_cg"
+
+
+def _check_method(method: str) -> None:
+    if method in ("dense", "dense_cg"):
+        raise ValueError(
+            f"solve_method {method!r}: the vmapped engine solves are on ROADMAP.md's list of "
+            "code the port does not carry; use 'lanes_chol', 'lanes_cg' or 'cg'"
+        )
+    if method not in _LANES_METHODS + ("cg",):
+        raise ValueError(f"unknown batched solve method {method!r}")
+
+
+def _batched_solve(cfg: DpgConfig, states: SlamState, solve_method: str, nb: int,
+                   gn_iterations: int | None = None, cg_iterations: int | None = None) -> torch.Tensor:
+    """Every lane's warm-started solve on node slots [:nb] (the engine's
+    solve settings); returns the (S, nb, 3) poses. "lanes_chol" /
+    "lanes_cg" run fg.solve_batched; "cg" runs the engine's
+    _keyframe_solve lane by lane (it reads the host)."""
+    pg = cfg.pose_graph
+    if solve_method == "cg":
+        return torch.stack([
+            eng._keyframe_solve(cfg, session_state(states, i), "cg", nb).poses[:nb]
+            for i in range(states.poses.shape[0])
+        ])
+    node_mask = torch.arange(nb, device=states.poses.device) < states.num_nodes[:, None]
+    poses, _ = fg.solve_batched(
+        states.poses[:, :nb],
+        states.graph,
+        node_mask,
+        max_iterations=pg.incremental_gn_iterations if gn_iterations is None else gn_iterations,
+        damping_init=pg.gn_damping_init,
+        method="chol" if solve_method == "lanes_chol" else "cg_fixed",
+        cg_iterations=12 if cg_iterations is None else cg_iterations,
+        robust_delta=pg.robust_delta,
+        gradient_tol=pg.gn_gradient_tol,
+        terminate_on_reject=True,
+        rel_tol=1e-4,
+    )
+    return poses
+
+
+def _process_sessions_batched(
+    cfg: DpgConfig,
+    states: SlamState,
+    kf_odom: torch.Tensor,   # (Km, S, 3) time-major keyframe odometry
+    kf_scans: torch.Tensor,  # (Km, S, B)
+    kf_valid: torch.Tensor,  # (Km, S) bool, False on padding steps
+    solve_method: str,
+    solve_bucket: int | None = None,
+    solve_stride: int = 1,
+    solve_gn_iterations: int | None = None,
+    solve_cg_iterations: int | None = None,
+) -> SlamState:
+    """The keyframe loop: each step runs one keyframe of every lane; the
+    solve runs after every `solve_stride` steps over each lane with a
+    keyframe in that group (1 = the reference's solve per keyframe; the
+    last group's solve covers the whole graph). Km must divide by the
+    stride. Updates `states`' tensors in place."""
+    Km = kf_odom.shape[0]
+    if Km % solve_stride:
+        raise ValueError(f"{Km} keyframe steps do not divide by solve_stride {solve_stride}")
+    nb = solve_bucket or states.poses.shape[1]
+    for g0 in range(0, Km, solve_stride):
+        for k in range(g0, g0 + solve_stride):
+            states = _lanes_keyframe(cfg, states, kf_odom[k], kf_scans[k], kf_valid[k])
+        live = kf_valid[g0:g0 + solve_stride].any(dim=0)
+        solved = _batched_solve(cfg, states, solve_method, nb, solve_gn_iterations, solve_cg_iterations)
+        states.poses[:, :nb] = torch.where(live[:, None, None], solved, states.poses[:, :nb])
+    return states
+
+
+def process_sessions_batched(
+    cfg: DpgConfig,
+    sessions: list[tuple[np.ndarray, np.ndarray]],
+    solve_bucket: int | None = None,
+    solve_method: str | None = None,
+    solve_stride: int = 1,
+    solve_gn_iterations: int | None = None,
+    solve_cg_iterations: int | None = None,
+    device="cuda",
+) -> tuple[SlamState, list[int]]:
+    """Run S independent sessions through the batched keyframe loop on
+    `device` (the card unless the caller names another).
+
+    sessions: (odometry (T_s, 3), scans (T_s, B)) per session.
+    solve_bucket: node slots the solve runs on (default: the smallest
+    engine bucket, a power of two from 64, above the longest session's
+    keyframe count). solve_method: "lanes_chol" / "lanes_cg" (the
+    lane-batched LM) or "cg" (the engine's solve per lane); default
+    _solve_choice. solve_stride: keyframes per solve (the step count is
+    padded to a multiple). solve_gn_iterations / solve_cg_iterations: the
+    lanes solve's iteration caps (default: the config's
+    incremental_gn_iterations / 12).
+
+    Returns (the stacked SlamState, per-session keyframe counts).
+    """
+    steps, counts, bucket, method = _schedule(cfg, sessions, solve_bucket, solve_method, solve_stride)
+    states = _stack_states(cfg, len(sessions), device)
+    states = _process_sessions_batched(
+        cfg, states, *(torch.as_tensor(x, device=device) for x in steps),
+        method, bucket, solve_stride, solve_gn_iterations, solve_cg_iterations,
+    )
+    return states, counts
+
+
+def _schedule(cfg: DpgConfig, sessions, solve_bucket: int | None, solve_method: str | None, solve_stride: int):
+    """The host's work before the loop: the packed keyframe steps
+    (kf_odom, kf_scans, kf_valid) padded to a multiple of the stride, the
+    keyframe counts, the node bucket and the solve method."""
+    kf_odom, kf_scans, kf_valid, counts = pack_sessions(cfg, sessions)
+    pad = (-kf_odom.shape[0]) % solve_stride
+    if pad:
+        kf_odom = np.concatenate([kf_odom, np.zeros((pad,) + kf_odom.shape[1:], np.float32)])
+        kf_scans = np.concatenate([kf_scans, np.zeros((pad,) + kf_scans.shape[1:], np.float32)])
+        kf_valid = np.concatenate([kf_valid, np.zeros((pad,) + kf_valid.shape[1:], bool)])
+    bucket = solve_bucket
+    if bucket is None:
+        bucket = 64
+        while bucket < max(counts) + 1:
+            bucket *= 2
+        bucket = min(bucket, cfg.capacity.max_nodes)
+    method = solve_method or _solve_choice(cfg, bucket)
+    _check_method(method)
+    return (kf_odom, kf_scans, kf_valid), counts, bucket, method

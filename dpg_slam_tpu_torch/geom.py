@@ -8,6 +8,7 @@ and the JAX package function for function.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -22,9 +23,22 @@ __all__ = [
     "apply",
     "inv_apply",
     "inv_sym3",
+    "constant",
 ]
 
 _TWO_PI = 2.0 * math.pi
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def constant(values, device) -> torch.Tensor:
+    """A float32 tensor of fixed values on `device`, made once per device
+    and values: a host-to-device copy waits for the stream, so paths that
+    must not read the host build their constants here. Read-only."""
+    return _constant(tuple(float(v) for v in values), torch.device(device))
 
 
 def inv_sym3(H: torch.Tensor) -> torch.Tensor:

@@ -9,8 +9,10 @@ semantics are the same). The LM solver is a Python loop that reads its
 accept/stop decisions on the host.
 
 ``method="dense_pallas"`` solves the dense system with ops/schur.spd_solve
-(kernel K2 on a CUDA tensor). Not ported here: ``solve_batched`` (it waits
-for batch.py) — see ROADMAP.md.
+(kernel K2 on a CUDA tensor). ``solve_batched`` runs S graphs stacked on
+a leading lane axis (batch.py's solver): one flat ``index_add_`` over the
+S·N node slots per assembly, and accept/stop decisions kept as per-lane
+device masks, so it never reads the host.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ __all__ = [
     "residuals",
     "total_error",
     "solve",
+    "solve_batched",
 ]
 
 
@@ -49,13 +52,15 @@ class FactorGraph(NamedTuple):
     edge_sqrt_info: torch.Tensor   # (E, 3, 3)
     num_edges: torch.Tensor        # () int32
 
+    # Live-slot masks, (P,) / (E,), or (S, P) / (S, E) for a graph stacked
+    # on a leading lane axis.
     @property
     def prior_mask(self) -> torch.Tensor:
-        return torch.arange(self.prior_idx.shape[0], device=self.prior_idx.device) < self.num_priors
+        return torch.arange(self.prior_idx.shape[-1], device=self.prior_idx.device) < self.num_priors[..., None]
 
     @property
     def edge_mask(self) -> torch.Tensor:
-        return torch.arange(self.edge_idx.shape[0], device=self.edge_idx.device) < self.num_edges
+        return torch.arange(self.edge_idx.shape[-2], device=self.edge_idx.device) < self.num_edges[..., None]
 
 
 class SolveStats(NamedTuple):
@@ -191,6 +196,11 @@ def _between_residual_jac(poses: torch.Tensor, g: FactorGraph):
     emask = g.edge_mask
     xi = poses[_masked_index(g.edge_idx[:, 0], emask)]
     xj = poses[_masked_index(g.edge_idx[:, 1], emask)]
+    return _between_rj(xi, xj, g.edge_meas, g.edge_sqrt_info)
+
+
+def _between_rj(xi, xj, meas, W):
+    """_between_residual_jac on gathered (M, 3) endpoint poses."""
     c = torch.cos(xi[:, 2])
     s = torch.sin(xi[:, 2])
     dx = xj[:, 0] - xi[:, 0]
@@ -198,7 +208,7 @@ def _between_residual_jac(poses: torch.Tensor, g: FactorGraph):
     px = c * dx + s * dy
     py = -s * dx + c * dy
     pth = geom.wrap_angle(xj[:, 2] - xi[:, 2])
-    r = torch.stack([px, py, pth], dim=-1) - g.edge_meas
+    r = torch.stack([px, py, pth], dim=-1) - meas
     r = torch.cat([r[:, :2], geom.wrap_angle(r[:, 2:3])], dim=-1)
 
     zeros = torch.zeros_like(c)
@@ -219,7 +229,6 @@ def _between_residual_jac(poses: torch.Tensor, g: FactorGraph):
         ],
         dim=-2,
     )
-    W = g.edge_sqrt_info
     return (
         torch.einsum("eab,eb->ea", W, r),
         torch.einsum("eab,ebc->eac", W, Ji),
@@ -229,9 +238,13 @@ def _between_residual_jac(poses: torch.Tensor, g: FactorGraph):
 
 def _prior_residual_jac(poses: torch.Tensor, g: FactorGraph):
     """Whitened residual and Jacobian of the priors: r = x - prior."""
-    r = poses[_masked_index(g.prior_idx, g.prior_mask)] - g.prior_val
+    return _prior_rj(poses[_masked_index(g.prior_idx, g.prior_mask)], g.prior_val, g.prior_sqrt_info)
+
+
+def _prior_rj(x, val, W):
+    """_prior_residual_jac on gathered (M, 3) poses."""
+    r = x - val
     r = torch.cat([r[:, :2], geom.wrap_angle(r[:, 2:3])], dim=-1)
-    W = g.prior_sqrt_info
     return torch.einsum("pab,pb->pa", W, r), W
 
 
@@ -341,19 +354,27 @@ def _dense_H(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor) -> torch.Tens
     """The damped (3N, 3N) normal matrix, blocks added at their flat
     (row * N + col) block index with index_add_ (an accumulating
     index_put_ sorts its indices and cost ~0.7 ms a call at 4096 edges on
-    an H100)."""
-    N = eq.diag.shape[0]
+    an H100). With a leading lane axis (eq.diag (S, N, 3, 3), damping
+    (S,), a stacked graph) it gives (S, 3N, 3N) from the same three
+    index_adds over S·N·N blocks, lane s at offset s·N·N."""
+    lanes = eq.diag.ndim == 4
+    S = eq.diag.shape[0] if lanes else 1
+    N = eq.diag.shape[-3]
     dev = eq.diag.device
+    dt = eq.diag.dtype
     emask = g.edge_mask
-    i_idx = _masked_index(g.edge_idx[:, 0], emask)
-    j_idx = _masked_index(g.edge_idx[:, 1], emask)
-    offm = emask.to(eq.diag.dtype)[:, None, None] * eq.off
-    eye = torch.eye(3, dtype=eq.diag.dtype, device=dev)
-    H = torch.zeros((N * N, 3, 3), dtype=eq.diag.dtype, device=dev)
-    H.index_add_(0, torch.arange(N, device=dev) * (N + 1), eq.diag + damping * eye)
-    H.index_add_(0, i_idx * N + j_idx, offm)
-    H.index_add_(0, j_idx * N + i_idx, offm.transpose(-1, -2))
-    return H.view(N, N, 3, 3).permute(0, 2, 1, 3).reshape(3 * N, 3 * N)
+    i_idx = _masked_index(g.edge_idx[..., 0], emask).reshape(S, -1)
+    j_idx = _masked_index(g.edge_idx[..., 1], emask).reshape(S, -1)
+    offm = (emask.to(dt)[..., None, None] * eq.off).reshape(-1, 3, 3)
+    eye = torch.eye(3, dtype=dt, device=dev)
+    d = damping[:, None, None, None] if lanes else damping
+    base = (torch.arange(S, device=dev) * (N * N))[:, None]
+    H = torch.zeros((S * N * N, 3, 3), dtype=dt, device=dev)
+    H.index_add_(0, (base + torch.arange(N, device=dev) * (N + 1)).reshape(-1), (eq.diag + d * eye).reshape(-1, 3, 3))
+    H.index_add_(0, (base + i_idx * N + j_idx).reshape(-1), offm)
+    H.index_add_(0, (base + j_idx * N + i_idx).reshape(-1), offm.transpose(-1, -2))
+    H = H.view(S, N, N, 3, 3).permute(0, 1, 3, 2, 4).reshape(S, 3 * N, 3 * N)
+    return H if lanes else H[0]
 
 
 def _dense_solve(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor) -> torch.Tensor:
@@ -507,4 +528,190 @@ def solve(
         damping = torch.clamp(damping * (0.5 if accept else 4.0), 1e-9, 1e6)
         accepted += int(accept)
         it += 1
+    return poses, SolveStats(initial_error=err0, final_error=err, iterations=accepted)
+
+
+# --------------------------------------------------------------------------
+# Lane-batched LM (the session-batched mode's solver)
+# --------------------------------------------------------------------------
+
+def _lane_error(pr: torch.Tensor, er: torch.Tensor, robust_delta: float | None) -> torch.Tensor:
+    """_error_from_residuals per lane: (S, P, 3), (S, E, 3) -> (S,)."""
+    prior_err = 0.5 * torch.sum(pr * pr, dim=(1, 2))
+    if robust_delta is None:
+        return prior_err + 0.5 * torch.sum(er * er, dim=(1, 2))
+    nrm = torch.linalg.norm(er, dim=-1)
+    huber = torch.where(nrm <= robust_delta, 0.5 * nrm * nrm, robust_delta * nrm - 0.5 * robust_delta * robust_delta)
+    return prior_err + torch.sum(huber, dim=1)
+
+
+def _assemble_lanes(
+    poses: torch.Tensor, g: FactorGraph, node_mask: torch.Tensor,
+    robust_delta: float | None = None,
+) -> tuple[_NormalEq, torch.Tensor]:
+    """_assemble for S graphs stacked on a leading lane axis: poses
+    (S, N, 3), node_mask (S, N). The factors of every lane go through one
+    residual sweep and one flat index_add_ per block kind over the S·N
+    node slots (lane s at offset s·N). Returns (eq with (S, N, 3, 3),
+    (S, E, 3, 3), (S, N, 3) blocks, error (S,))."""
+    S, N = poses.shape[:2]
+    P, E = g.prior_idx.shape[1], g.edge_idx.shape[1]
+    dt, dev = poses.dtype, poses.device
+    pmask, emask = g.prior_mask, g.edge_mask
+    base = (torch.arange(S, device=dev) * N)[:, None]
+    p_idx = (_masked_index(g.prior_idx, pmask) + base).reshape(-1)
+    i_idx = (_masked_index(g.edge_idx[..., 0], emask) + base).reshape(-1)
+    j_idx = (_masked_index(g.edge_idx[..., 1], emask) + base).reshape(-1)
+    flat = poses.reshape(S * N, 3)
+    pr, pJ = _prior_rj(flat[p_idx], g.prior_val.reshape(-1, 3), g.prior_sqrt_info.reshape(-1, 3, 3))
+    er, Ji, Jj = _between_rj(flat[i_idx], flat[j_idx], g.edge_meas.reshape(-1, 3), g.edge_sqrt_info.reshape(-1, 3, 3))
+    pm = pmask.reshape(-1).to(dt)
+    em = emask.reshape(-1).to(dt)
+
+    err = _lane_error((pr * pm[:, None]).view(S, P, 3), (er * em[:, None]).view(S, E, 3), robust_delta)
+
+    if robust_delta is not None:
+        em = em * torch.sqrt(_huber_weight(er, robust_delta))
+    pJ = pJ * pm[:, None, None]
+    pr = pr * pm[:, None]
+    Ji = Ji * em[:, None, None]
+    Jj = Jj * em[:, None, None]
+    er = er * em[:, None]
+
+    diag = torch.zeros((S * N, 3, 3), dtype=dt, device=dev)
+    diag.index_add_(0, p_idx, pJ.transpose(-1, -2) @ pJ)
+    diag.index_add_(0, i_idx, Ji.transpose(-1, -2) @ Ji)
+    diag.index_add_(0, j_idx, Jj.transpose(-1, -2) @ Jj)
+    off = Ji.transpose(-1, -2) @ Jj
+    rhs = torch.zeros((S * N, 3), dtype=dt, device=dev)
+    rhs.index_add_(0, p_idx, torch.einsum("pba,pb->pa", pJ, pr))
+    rhs.index_add_(0, i_idx, torch.einsum("eba,eb->ea", Ji, er))
+    rhs.index_add_(0, j_idx, torch.einsum("eba,eb->ea", Jj, er))
+
+    live = node_mask.reshape(-1)
+    eye = torch.eye(3, dtype=dt, device=dev)
+    diag = torch.where(live[:, None, None], diag, eye)
+    rhs = torch.where(live[:, None], rhs, 0.0)
+    return _NormalEq(diag.view(S, N, 3, 3), off.view(S, E, 3, 3), rhs.view(S, N, 3)), err
+
+
+def _dense_solve_lanes(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor) -> torch.Tensor:
+    """_dense_solve for every lane of the (S, 3N, 3N) damped systems; a
+    lane whose factorization failed gets NaN, which its LM step rejects.
+
+    The systems are factored one lane at a time: on an H100 the batched
+    cholesky_ex of the session-batched mode's (16, 384, 384) systems
+    reported failed factorizations on ~2 of 16 lanes a call, lanes that
+    factor alone, and left lanes of 0.2-0.9 m ATE (chip_smoke.py phase 9,
+    PERF.md)."""
+    S, N = eq.diag.shape[:2]
+    H = _dense_H(eq, g, damping)
+    b = eq.rhs.reshape(S, 3 * N, 1)
+    deltas = []
+    for s in range(S):
+        L, info = torch.linalg.cholesky_ex(H[s])
+        deltas.append(torch.where(info == 0, torch.cholesky_solve(b[s], L), float("nan")))
+    return torch.stack(deltas).reshape(S, N, 3)
+
+
+def _dense_cg_fixed(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, iters: int) -> torch.Tensor:
+    """Block-Jacobi preconditioned CG on the dense (S, 3N, 3N) systems, a
+    fixed number of iterations for every lane (no convergence test)."""
+    S, N = eq.diag.shape[:2]
+    Hf = _dense_H(eq, g, damping)
+    eye = torch.eye(3, dtype=eq.diag.dtype, device=eq.diag.device)
+    Minv = geom.inv_sym3(eq.diag + damping[:, None, None, None] * eye)
+
+    def precond(v):
+        return torch.einsum("snab,snb->sna", Minv, v)
+
+    def mv(v):
+        return (Hf @ v.reshape(S, 3 * N, 1)).reshape(S, N, 3)
+
+    b = eq.rhs
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    p = z
+    rz = torch.sum(r * z, dim=(1, 2))
+    for _ in range(iters):
+        Ap = mv(p)
+        denom = torch.sum(p * Ap, dim=(1, 2))
+        alpha = torch.where(denom > 1e-20, rz / denom, 0.0)[:, None, None]
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.sum(r * z, dim=(1, 2))
+        beta = torch.where(rz > 1e-20, rz_new / rz, 0.0)[:, None, None]
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
+def solve_batched(
+    poses: torch.Tensor,
+    g: FactorGraph,
+    node_mask: torch.Tensor,
+    *,
+    max_iterations: int = 5,
+    damping_init: float = 1e-4,
+    method: str = "cg_fixed",
+    cg_iterations: int = 8,
+    robust_delta: float | None = None,
+    gradient_tol: float = 0.0,
+    terminate_on_reject: bool = False,
+    rel_tol: float = 1e-6,
+) -> tuple[torch.Tensor, SolveStats]:
+    """LM over S independent pose graphs stacked on a leading lane axis:
+    poses (S, N, 3), node_mask (S, N), graph leaves (S, ...).
+
+    solve's update rules (accept on a lower error, damping x0.5 / x4 in
+    [1e-9, 1e6], rel_tol stop, terminate_on_reject's first-step retry,
+    gradient_tol) per lane, over max_iterations unrolled steps with
+    per-lane accept / damping / done masks: a done lane's poses freeze as
+    if its loop had exited. Each step assembles once at the candidate
+    poses, which is both the accept test and the next linearization; a
+    rejected lane keeps its previous one. No decision reads the host.
+
+    method: "chol" (batched Cholesky) or "cg_fixed" (block-Jacobi PCG on
+    the dense systems, cg_iterations each step). SolveStats holds (S,)
+    tensors.
+    """
+    if method not in ("chol", "cg_fixed"):
+        raise ValueError(f"unknown batched solve method {method!r}")
+    eq, err = _assemble_lanes(poses, g, node_mask, robust_delta)
+    S = poses.shape[0]
+    dev = poses.device
+    damping = torch.full((S,), damping_init, dtype=poses.dtype, device=dev)
+    if gradient_tol > 0.0:
+        done = eq.rhs.abs().amax(dim=(1, 2)) <= gradient_tol
+    else:
+        done = torch.zeros((S,), dtype=torch.bool, device=dev)
+    accepted = torch.zeros((S,), dtype=torch.int32, device=dev)
+    err0 = err
+    for it in range(max_iterations):
+        if method == "chol":
+            delta = _dense_solve_lanes(eq, g, damping)
+        else:
+            delta = _dense_cg_fixed(eq, g, damping, cg_iterations)
+        cand = poses - delta
+        cand = torch.cat([cand[..., :2], geom.wrap_angle(cand[..., 2:3])], dim=-1)
+        eq_c, err_c = _assemble_lanes(cand, g, node_mask, robust_delta)
+        accept = (err_c < err) & ~done
+        small = (err - err_c) / torch.clamp(err, min=1e-12) < rel_tol
+        if terminate_on_reject:
+            new_done = small & (accept | (accepted > 0) | (it >= 1))
+        else:
+            new_done = accept & small
+        poses = torch.where(accept[:, None, None], cand, poses)
+        err = torch.where(accept, err_c, err)
+        eq = _NormalEq(*(
+            torch.where(accept.view((S,) + (1,) * (a.ndim - 1)), a, b) for a, b in zip(eq_c, eq)
+        ))
+        if gradient_tol > 0.0:
+            new_done = new_done | (accept & (eq_c.rhs.abs().amax(dim=(1, 2)) <= gradient_tol))
+        step = torch.where(accept, damping * 0.5, damping * 4.0)
+        damping = torch.where(done, damping, torch.clamp(step, 1e-9, 1e6))
+        accepted = accepted + (accept & ~done).to(torch.int32)
+        done = done | new_done
     return poses, SolveStats(initial_error=err0, final_error=err, iterations=accepted)

@@ -321,10 +321,7 @@ def accept_and_covariance(
     )
     dev = transform.device
     fallback = torch.diag(
-        torch.tensor(
-            [params.laser_x_variance, params.laser_y_variance, params.laser_theta_variance],
-            dtype=torch.float32, device=dev,
-        )
+        geom.constant([params.laser_x_variance, params.laser_y_variance, params.laser_theta_variance], dev)
     )
     B = transform.shape[0]
     if params.use_fixed_icp_covariance:
@@ -337,7 +334,7 @@ def accept_and_covariance(
             safe_H = torch.where(converged[:, None, None], hessian, eye)
             cov = 2.0 * (sensor_noise_std**2) * geom.inv_sym3(safe_H)
         ft, fr = params.icp_cov_floor_transl**2, params.icp_cov_floor_rot**2
-        cov = cov + torch.diag(torch.tensor([ft, ft, fr], dtype=torch.float32, device=dev))
+        cov = cov + torch.diag(geom.constant([ft, ft, fr], dev))
         cov = torch.where(converged[:, None, None], cov, fallback)
     return ICPResult(transform, converged, num_corr, fitness, overlap, cov)
 

@@ -183,7 +183,11 @@ def icp_align_cuda(
     censi = icp_mod.is_censi_mode(params)
     out = run_kernel(*pack(src, src_mask, tgt, tgt_mask, tgt_normals, init_guess, gate_multiplier),
                      params, censi)
-    H = out[:, [5, 6, 7, 6, 8, 9, 7, 9, 10]].reshape(-1, 3, 3)
+    # The Hessian's six sums (h00 h01 h02 h11 h12 h22) as a symmetric 3x3;
+    # built from slices, as a list index would copy its indices to the
+    # card and wait for the stream.
+    h = out[:, 5:11]
+    H = torch.stack([h[:, i] for i in (0, 1, 2, 1, 3, 4, 2, 4, 5)], dim=-1).reshape(-1, 3, 3)
     return icp_mod.accept_and_covariance(
         out[:, 0:3], out[:, 3].to(torch.int32), out[:, 4], H,
         out[:, 12:20] if censi else None,

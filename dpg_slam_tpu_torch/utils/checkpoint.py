@@ -36,10 +36,14 @@ def state_to_numpy(state) -> dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in _flat_items(state)}
 
 
-def state_from_numpy(flat: dict[str, np.ndarray], config: DpgConfig, device="cuda"):
+def state_from_numpy(flat: dict[str, np.ndarray], config: DpgConfig, device="cuda", lanes: int | None = None):
     """Build a SlamState on `device` from a flat checkpoint dict. Fields the
-    dict lacks keep their initial values; shapes must match the config."""
+    dict lacks keep their initial values; shapes must match the config.
+    With `lanes`, every field carries a leading lane axis of that size (a
+    stacked state of the session-batched mode)."""
     from dpg_slam_tpu_torch.engine import _init_state
+
+    lead = () if lanes is None else (lanes,)
 
     def rebuild(obj, prefix=""):
         vals = {}
@@ -50,14 +54,14 @@ def state_from_numpy(flat: dict[str, np.ndarray], config: DpgConfig, device="cud
                 vals[name] = rebuild(child, key + "/")
             elif key in flat:
                 arr = np.asarray(flat[key])
-                if arr.shape != tuple(child.shape):
+                if arr.shape != lead + tuple(child.shape):
                     raise ValueError(
                         f"checkpoint field {key} has shape {arr.shape}, "
-                        f"config expects {tuple(child.shape)}"
+                        f"config expects {lead + tuple(child.shape)}"
                     )
                 vals[name] = torch.tensor(arr, device=device).to(child.dtype)  # a copy
             else:
-                vals[name] = child
+                vals[name] = child.expand(lead + tuple(child.shape)).clone()
         return type(obj)(**vals)
 
     return rebuild(_init_state(config, device))

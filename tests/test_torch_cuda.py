@@ -1,6 +1,7 @@
 """Kernels K1 (csrc/icp_kernel.cu) and K2 (csrc/spd_solve_kernel.cu) on a
 CUDA card against their plain PyTorch versions, and the port's keyframe
-path, dense_pallas solve and Schur reoptimize on the card against the CPU.
+path, dense_pallas solve, Schur reoptimize and session-batched mode on the
+card against the CPU; the batched step loop makes no host sync.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. The file
 imports no JAX, so it runs on a machine without it:
@@ -22,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from dpg_slam_tpu_torch import geom
+from dpg_slam_tpu_torch import batch, geom
 from dpg_slam_tpu_torch.config import CapacityParams, DpgConfig, PoseGraphParams, ScanParams
 from dpg_slam_tpu_torch.engine import DpgSlamEngine
 from dpg_slam_tpu_torch.graph import factor_graph as fg
@@ -344,3 +345,101 @@ def test_schur_reoptimize_on_card_matches_cpu(cuda):
     d = (out[0] - out[1]).abs()
     d[:, 2] = torch.remainder(d[:, 2] + np.pi, 2 * np.pi) - np.pi
     assert d.abs().max().item() <= 1e-2
+
+
+# --- the session-batched mode on the card -------------------------------------
+
+def _batched_setup(n_sessions, scans_per_session, full_width=False):
+    """A config and n_sessions simulated office sessions (seeds 11, 12, ...):
+    test size, or the bench's full width (bench_assets/keyframe)."""
+    if full_width:
+        import pathlib
+
+        cfg = DpgConfig.from_json(
+            (pathlib.Path(__file__).parent.parent / "bench_assets" / "keyframe" / "config.json").read_text()
+        )
+    else:
+        cfg = DpgConfig(
+            scan=ScanParams(num_beams=256, range_max=10.0),
+            pose_graph=PoseGraphParams(icp_max_points=64, icp_maximum_iterations=30, max_loop_closures_per_node=4),
+            capacity=CapacityParams(max_nodes=64, max_edges=512, max_priors=8),
+        )
+    world, wps = dataset.make_office_world(), dataset.office_loop_waypoints()
+    seqs = [dataset.simulate_sequence(world, wps, cfg.scan, step=0.5, seed=11 + i,
+                                      odom_noise_transl=0.02, odom_noise_rot=0.008)
+            for i in range(n_sessions)]
+    return cfg, [(s.odometry[:scans_per_session], s.scans[:scans_per_session]) for s in seqs]
+
+
+def _batched_loop(cfg, sessions, device, method="lanes_chol"):
+    """(states, steps, bucket, method) ready for batch._process_sessions_batched."""
+    steps, _, bucket, method = batch._schedule(cfg, sessions, None, method, 1)
+    states = batch._stack_states(cfg, len(sessions), device)
+    return states, [torch.as_tensor(x, device=device) for x in steps], bucket, method
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["lanes_chol", "lanes_cg"])
+def test_batched_step_loop_makes_no_host_sync(cuda, method):
+    """At S = 4 the step loop runs with sync debug mode set to "error": any
+    host read inside a step raises."""
+    cfg, sessions = _batched_setup(4, 40)
+    states, steps, bucket, method = _batched_loop(cfg, sessions, cuda, method)
+    batch._process_sessions_batched(cfg, states, *steps, method, bucket)  # first use: handles, constants
+    states, steps, bucket, method = _batched_loop(cfg, sessions, cuda, method)
+    torch.cuda.synchronize()
+    before = icp_cuda.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        states = batch._process_sessions_batched(cfg, states, *steps, method, bucket)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert icp_cuda.LAUNCHES - before == steps[0].shape[0]  # one K1 launch a step
+    assert (states.num_nodes.cpu() > 3).all()
+
+
+@pytest.mark.cuda
+def test_batched_lanes_on_card_match_cpu(cuda):
+    cfg, sessions = _batched_setup(3, 80)
+    runs = [batch.process_sessions_batched(cfg, sessions, device=d) for d in (cuda, "cpu")]
+    (sg, cg), (sc, cc) = runs
+    assert cg == cc
+    for i, n in enumerate(cg):
+        lg, lc = batch.session_state(sg, i), batch.session_state(sc, i)
+        edges = (int(lg.graph.num_edges), int(lc.graph.num_edges))
+        assert int(lg.num_nodes) == int(lc.num_nodes) == n
+        assert edges[0] == edges[1], f"lane {i}: edges {edges}"
+        np.testing.assert_allclose(lg.poses[:n].cpu().numpy(), lc.poses[:n].numpy(), atol=1e-2, err_msg=f"lane {i}")
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_a_batched_step(cuda):
+    """K1 on the fused pairs of a real batched step at full width (16
+    sessions, K = 8: 144 pairs of 256 points; the last step of one office
+    lap, where loop closures are live), against the plain version."""
+    cfg, sessions = _batched_setup(16, None, full_width=True)
+    states, steps, bucket, method = _batched_loop(cfg, sessions, cuda)
+    calls = []
+    real = icp.icp_align
+
+    def capture(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    icp.icp_align = capture
+    try:
+        batch._process_sessions_batched(cfg, states, *steps, method, bucket)
+    finally:
+        icp.icp_align = real
+    args, kw = max(calls, key=lambda c: c[0][3].any(1).sum().item())  # the step with the most live pairs
+    assert args[0].shape == (144, 256, 2) and args[3].any(1).sum().item() > 16
+    pg = args[5]
+    kw = dict(kw, min_correspondences=10, fitness_threshold=0.25, min_overlap=pg.icp_min_overlap,
+              sensor_noise_std=pg.icp_sensor_noise_std)
+    ker = icp_cuda.icp_align_cuda(*args, **kw)
+    ref = icp.icp_align_plain(*args, **kw)
+    torch.testing.assert_close(ker.transform, ref.transform, rtol=0, atol=5e-4)
+    torch.testing.assert_close(ker.fitness, ref.fitness, rtol=0, atol=1e-4)
+    both = ker.converged == ref.converged
+    assert both.float().mean().item() >= 0.99 and ker.converged.any()
+    torch.testing.assert_close(ker.covariance[both], ref.covariance[both], rtol=0.05, atol=1e-7)

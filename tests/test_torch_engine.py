@@ -228,3 +228,100 @@ def test_engine_config_defaults_like_jax():
     assert eng.config == TorchConfig()
     assert eng.state.poses.device.type == "cpu"
     assert eng.state.poses.shape[0] == TorchConfig().capacity.max_nodes
+
+
+# --- offline sequence mode (process_sequence) --------------------------------
+# At test_engine.small_config() (64 nodes), as tests/test_engine.py's
+# offline tests. Tolerances: against the port's online loop,
+# tests/test_engine.py's 1e-4 (the same frontend; the solve runs at full
+# node capacity instead of the live bucket); against the JAX package's
+# offline program, 1e-3, as test_single_pass_matches_jax; the pipelined
+# schedule within 0.2 m of the plain one (tests/test_engine.py) and within
+# 1e-3 of JAX's pipelined run.
+
+
+@pytest.fixture(scope="module")
+def offline(office_seq):
+    """JAX and port engines after process_sequence of one pass, plain and
+    pipelined, and the port's online loop over the same scans:
+    ({pipelined: (jax_eng, torch_eng, jax_mask, torch_mask)}, (online_eng, keyframes))."""
+    jcfg = small_config()
+    tcfg = TorchConfig.from_json(jcfg.to_json())
+    out = {}
+    # One intra-op thread for the port's runs of many tiny ops (OpenMP
+    # overhead dominates them when the test workers share the cores).
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for pipelined in (False, True):
+            je = jeng.DpgSlamEngine(jcfg)
+            te = teng.DpgSlamEngine(tcfg, "cpu")
+            jm = je.process_sequence(office_seq.odometry, office_seq.scans, pipelined=pipelined)
+            tm = te.process_sequence(office_seq.odometry, office_seq.scans, pipelined=pipelined)
+            out[pipelined] = (je, te, np.asarray(jm), tm)
+        online = teng.DpgSlamEngine(tcfg, "cpu")
+        kf_online = run_sequence(online, office_seq)
+    finally:
+        torch.set_num_threads(threads)
+    return out, (online, kf_online)
+
+
+def test_offline_sequence_matches_online(offline):
+    runs, (te_on, kf_on) = offline
+    _, te, _, mask = runs[False]
+    assert list(np.flatnonzero(mask)) == kf_on
+    assert te.num_nodes() == te_on.num_nodes()
+    _assert_same_edges(te_on.state, te.state)
+    _assert_poses_close(te_on.trajectory(), te.trajectory(), 1e-4)
+
+
+def test_offline_sequence_matches_jax(offline):
+    je, te, jm, tm = offline[0][False]
+    assert tm.dtype == bool and tm.shape == jm.shape
+    np.testing.assert_array_equal(tm, jm)
+    _assert_same_edges(je.state, te.state)
+    assert int(te.state.graph.num_priors) == int(je.state.graph.num_priors)
+    _assert_poses_close(je.trajectory(), te.trajectory(), 1e-3)
+
+
+def test_pipelined_sequence_close_to_plain(offline):
+    _, te_plain, _, plain_mask = offline[0][False]
+    je, te, jm, tm = offline[0][True]
+    np.testing.assert_array_equal(tm, plain_mask)
+    assert te.num_nodes() == int(tm.sum()) == te_plain.num_nodes()
+    d = np.linalg.norm(te.trajectory()[:, :2] - te_plain.trajectory()[:, :2], axis=1)
+    assert d.max() < 0.2, f"max pose deviation {d.max()}"
+    np.testing.assert_array_equal(tm, jm)
+    _assert_same_edges(je.state, te.state)
+    _assert_poses_close(je.trajectory(), te.trajectory(), 1e-3)
+
+
+def test_offline_sequence_respects_capacity(office_seq):
+    """At node capacity the offline run drops keyframes with a warning
+    instead of raising (the online path raises)."""
+    from dpg_slam_tpu_torch.config import CapacityParams as TCap, PoseGraphParams, ScanParams
+
+    cfg = TorchConfig(
+        scan=ScanParams(num_beams=256, range_max=10.0),
+        pose_graph=PoseGraphParams(icp_max_points=64, icp_maximum_iterations=10, max_loop_closures_per_node=2),
+        capacity=TCap(max_nodes=8, max_edges=64, max_priors=4),
+    )
+    eng = teng.DpgSlamEngine(cfg, "cpu")
+    with pytest.warns(RuntimeWarning, match="capacity"):
+        kf_mask = eng.process_sequence(office_seq.odometry, office_seq.scans)
+    assert eng.num_nodes() == 8 and kf_mask.sum() == 8
+    assert np.isfinite(eng.trajectory()).all()
+
+
+def test_process_sequence_dpg_raises_before_the_state_changes(offline, office_seq):
+    """On pass >= 1 with DPG on, process_sequence raises (DPG is not
+    ported) and leaves the state as it was."""
+    src = offline[0][False][1]
+    te = teng.DpgSlamEngine(src.config, "cpu")
+    te.state = src.state._replace(pass_number=torch.ones_like(src.state.pass_number))
+    before = te.state
+    with pytest.raises(NotImplementedError, match="DPG"):
+        te.process_sequence(office_seq.odometry, office_seq.scans)
+    assert te.state is before
+    with pytest.raises(ValueError, match="scans"):
+        te.process_sequence(office_seq.odometry, office_seq.scans[:, :10], run_dpg=False)

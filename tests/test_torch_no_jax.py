@@ -1,7 +1,8 @@
 """The port stands without JAX: no module of dpg_slam_tpu_torch (nor
-chip_smoke.py) imports jax or dpg_slam_tpu, the package runs keyframes in
-a process where jax cannot be imported, and chip_smoke.py refuses to run
-without a CUDA card."""
+chip_smoke.py) imports jax or dpg_slam_tpu, the package runs keyframes,
+the offline sequence mode and the session-batched mode in a process where
+jax cannot be imported, and chip_smoke.py refuses to run without a CUDA
+card."""
 
 import ast
 import os
@@ -56,9 +57,19 @@ while eng.num_nodes() < 3:
     t += 1
 traj = eng.trajectory()
 assert traj.shape == (3, 3) and np.isfinite(traj).all()
+
+# The offline sequence mode and the session-batched mode, on 12 scans.
+from dpg_slam_tpu_torch import batch
+seqs = [seq, dataset.simulate_sequence(dataset.make_office_world(), dataset.office_loop_waypoints(), cfg.scan,
+                                       step=0.5, seed=2)]
+off = DpgSlamEngine(cfg, "cpu")
+kf = off.process_sequence(seq.odometry[:12], seq.scans[:12])
+states, counts = batch.process_sessions_batched(cfg, [(s.odometry[:12], s.scans[:12]) for s in seqs], device="cpu")
+assert counts[0] == int(kf.sum()) == off.num_nodes() == int(batch.session_state(states, 0).num_nodes) >= 3
+assert np.isfinite(states.poses.numpy()).all()
 assert not any(m == "jax" or m.startswith(("jax.", "dpg_slam_tpu.")) or m == "dpg_slam_tpu"
                for m in sys.modules if sys.modules[m] is not None)
-print("three keyframes", int(eng.state.graph.num_edges))
+print("three keyframes", int(eng.state.graph.num_edges), "batched lanes", counts)
 """
 
 
@@ -75,7 +86,7 @@ def test_port_runs_with_jax_blocked():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert "three keyframes" in proc.stdout
+    assert "three keyframes" in proc.stdout and "batched lanes" in proc.stdout
 
 
 def _assert_refused(proc):

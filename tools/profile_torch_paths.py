@@ -6,13 +6,16 @@
 Runs each path of chip_smoke.py once to warm up, once under torch.profiler
 (CPU + CUDA activity) and once unprofiled, on the committed fixtures:
 keyframe (bench_assets/keyframe continuation, solve_method "dense" and
-"dense_pallas"), reoptimize (bench_assets/session increment_pass, "dense"
-and "dense_pallas") and the 4-shard Schur reoptimize through K2. Prints
-one JSON line per path: unprofiled wall ms, device busy ms (sum of CUDA
-kernel and memcpy intervals on the one stream), idle share of the
-unprofiled wall, kernel launches, the top kernels by device time
-(name, ms, launches), and the device ms and launches of K1 and K2.
-The first line is the card's nvidia-smi name and power limit.
+"dense_pallas"), offline (process_sequence over the same scans),
+reoptimize (bench_assets/session increment_pass, "dense" and
+"dense_pallas"), the 4-shard Schur reoptimize through K2, and the
+session-batched mode at chip_smoke.py phase 9's configuration (16
+simulated sessions of 3 office laps). Prints one JSON line per path:
+unprofiled wall ms, device busy ms (sum of CUDA kernel and memcpy
+intervals), idle share of the unprofiled wall, kernel launches (and per
+keyframe on the keyframe paths), the top kernels by device time (name,
+ms, launches), and the device ms and launches of K1 and K2. The first
+line is the card's nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import functools
 import time
 from collections import defaultdict
 
@@ -30,9 +34,24 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402
 
+@functools.cache
+def batched_inputs():
+    cfg = cs.batched_config()
+    return cfg, cs.batched_sessions(cfg, cs.BATCH_SESSIONS, cs.BATCH_LAPS)[0]
+
+
+def run_batched():
+    cfg, sessions = batched_inputs()
+    return cs.run_batched(cfg, sessions, solve_method=cs.BATCH_METHOD, solve_stride=cs.BATCH_STRIDE,
+                          solve_gn_iterations=cs.BATCH_GN)
+
+
 PATHS = {
     "keyframe_dense": lambda: cs.run_keyframes(cs.DEVICE),
     "keyframe_dense_pallas": lambda: cs.run_keyframes(cs.DEVICE, "dense_pallas"),
+    "offline_dense": lambda: cs.run_offline(),
+    "offline_pipelined_dense": lambda: cs.run_offline(pipelined=True),
+    "batched_record": run_batched,
     "reoptimize_dense": lambda: cs.run_reoptimize(cs.DEVICE),
     "reoptimize_dense_pallas": lambda: cs.run_reoptimize(cs.DEVICE, "dense_pallas"),
     "schur_4_shards_k2": lambda: cs.session_schur(True),
@@ -56,7 +75,10 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     for name, run in PATHS.items():
-        run()
+        out = run()
+        keyframes = {"keyframe": lambda: len(out[1]), "offline": lambda: int(out[1].sum()),
+                     "batched": lambda: sum(out[1])}
+        kf = next((f() for k, f in keyframes.items() if name.startswith(k)), None)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
@@ -76,7 +98,8 @@ def main() -> None:
                 for k, marks in KERNELS.items()}
         print(json.dumps({
             "path": name, "wall_ms": wall, "device_busy_ms": busy,
-            "idle_share": max(0.0, 1.0 - busy / wall), "device_ops": launches,
+            "idle_share": max(0.0, 1.0 - busy / wall), "device_ops": launches, "keyframes": kf,
+            "device_ops_per_keyframe": launches / kf if kf else None,
             "top": [[k[:60], v, count[k]] for k, v in top],
             "kernels_ms_launches": ours,
         }), flush=True)
