@@ -47,8 +47,20 @@ committed fixtures (1024 beams, 256 ICP points, K = 8, 30 ICP iterations,
                  9b two one-lap lanes against process_sequence; 9c K1 on a
                  captured 144-pair step against plain, and K2 beside
                  torch.linalg on a captured (16, 384, 1) lanes system
+ 10 dpg          DPG change detection at the session config (1024 beams,
+                 a 1024² window at 0.05 m, M = 32, C = 5, local
+                 registration on 2,048 targets): 10a one execute_dpg on
+                 bench_assets/session on the card and on the CPU, compared,
+                 timed (median of 20 calls after a warm one), its host
+                 syncs counted (must be 0) and its K1 launches (1); 10b K1
+                 on the step's captured 5 x (256 vs 2,048) batch against
+                 plain, with its launch plan and layouts; 10c the two-pass
+                 box scene of tests/test_dpg.py at full width, online, with
+                 that test's bars and the JAX package's values beside; 10d
+                 process_sequence on the session state without and with
+                 DPG (bench.py's bench_dpg part b)
 
-Each path phase (3-9) runs with the kernels' launch counts set to 0 just
+Each path phase (3-10) runs with the kernels' launch counts set to 0 just
 before it and read just after. Each phase prints one JSON line; any failed
 check raises, so the exit code is non-zero. The last lines are the
 kernels' record, the card's nvidia-smi line and {"ok": true, "device":
@@ -58,6 +70,7 @@ kernels' record, the card's nvidia-smi line and {"ok": true, "device":
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import pathlib
 import subprocess
@@ -71,7 +84,9 @@ import torch
 import dpg_slam_tpu_torch  # noqa: F401  (sets the float32 matmul policy)
 from dpg_slam_tpu_torch import batch as batch_mod
 from dpg_slam_tpu_torch import engine as eng_mod
+from dpg_slam_tpu_torch import scan
 from dpg_slam_tpu_torch.config import DpgConfig
+from dpg_slam_tpu_torch.dpg import change_detection
 from dpg_slam_tpu_torch.graph import factor_graph as fg
 from dpg_slam_tpu_torch.io import dataset
 from dpg_slam_tpu_torch.ops import _nvcc, icp, icp_cuda, schur, schur_cuda
@@ -125,6 +140,21 @@ BATCH_REPEATS = 3
 LANE_ATE_MAX = 0.25
 LANE_POSE_TOL = 2e-3
 SPREAD_RUNS = 3
+# DPG (phase 10). Card against CPU on one step: at most 0.1 % of the live
+# label entries and of the sector entries differ (atan2 and the local
+# registration's sums differ in the last bits), node_active and the
+# contributor count equal, the added / removed counts within max(2, 1 %),
+# coverage within 1e-3. The box scene's bars are tests/test_dpg.py's.
+DPG_ENTRY_FRAC = 1e-3
+DPG_COUNT_ABS, DPG_COUNT_REL = 2, 0.01
+DPG_COVERAGE_ATOL = 1e-3
+DPG_REPEATS = 20
+DPG_OFFLINE_SCANS = 56
+# The JAX package on this scene and config (jax 0.9.0 on a CPU): both
+# passes through observe_laser, DPG on; a comparison, not a gate.
+DPG_SCENE_JAX = dict(keyframes=[38, 37], added=1298, removed=517, removed_near_frac=0.857,
+                     pass0_sectors_off=35, last_info=dict(num_added=171, num_removed=0, coverage=0.954,
+                                                          num_contributors=18))
 # H100 SXM published peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores (an FMA counted as two flops) and HBM3 bandwidth.
 PEAK_FP32 = 67e12
@@ -448,7 +478,6 @@ def ate_phase(cfg: DpgConfig):
 
 def run_reoptimize(device, solve_method: str | None = None):
     eng = load_checkpoint(ASSETS / "session", device)
-    eng._dpg_enabled = False
     if solve_method is not None:
         eng.solve_method = solve_method
     t0 = time.perf_counter()
@@ -634,7 +663,6 @@ def schur_phase(ro_dense, n_live):
     )
     mesh_eng = eng_mod.DpgSlamEngine(gpu_ro.config, mesh=make_mesh(SHARDS))
     mesh_eng.state = load_checkpoint(ASSETS / "session", DEVICE).state
-    mesh_eng._dpg_enabled = False
     _, got_eng = counted(mesh_eng.increment_pass)
     out = dict(
         shards=SHARDS, separators=sep_count, sep_cap=separator_cap(N), seconds=secs,
@@ -918,7 +946,6 @@ def batched_phase(single_stream_kf_per_s: float):
         lane_engines = []
         for odom, scans in pair:
             eng = eng_mod.DpgSlamEngine(cfg, DEVICE)
-            eng._dpg_enabled = False
             eng.process_sequence(odom, scans)
             lane_engines.append(eng)
         engines.append(lane_engines)
@@ -942,6 +969,256 @@ def batched_phase(single_stream_kf_per_s: float):
     if max(diffs) > tol:
         raise AssertionError(f"batched lanes differ from process_sequence by {max(diffs)} > {tol}")
     return out, batched_k1_case(k1_input), batched_k2_case(H, B)
+
+
+# --- phase 10: DPG change detection ---------------------------------------------
+
+def session_config() -> DpgConfig:
+    return DpgConfig.from_json((ASSETS / "session" / "config.json").read_text())
+
+
+def dpg_step(cfg, state):
+    out = change_detection.execute_dpg(cfg, state)
+    if state.poses.device.type == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def capture_icp_input(run):
+    """(args, kwargs) of the ops.icp.icp_align call that `run` makes."""
+    box, real = {}, icp.icp_align
+
+    def record(*args, **kwargs):
+        box["k1"] = ([a.clone() if torch.is_tensor(a) else a for a in args],
+                     {k: v.clone() if torch.is_tensor(v) else v for k, v in kwargs.items()})
+        return real(*args, **kwargs)
+
+    icp.icp_align = record
+    try:
+        run()
+    finally:
+        icp.icp_align = real
+    return box["k1"]
+
+
+def dpg_diff(gpu, cpu, ginfo, cinfo, n_live: int) -> dict:
+    """Entries of the card's step that differ from the CPU's, and the
+    bounds they are held to."""
+    g_lab, c_lab = gpu.labels[:n_live].cpu(), cpu.labels[:n_live]
+    g_sec, c_sec = gpu.sector_active[:n_live].cpu(), cpu.sector_active[:n_live]
+    out = dict(label_entries_differ=int((g_lab != c_lab).sum()), label_entries=g_lab.numel(),
+               sector_entries_differ=int((g_sec != c_sec).sum()), sector_entries=g_sec.numel(),
+               node_active_differ=int((gpu.node_active.cpu() != cpu.node_active).sum()))
+    for k in ("num_added", "num_removed", "num_contributors", "coverage"):
+        out[f"{k}_card"], out[f"{k}_cpu"] = float(getattr(ginfo, k)), float(getattr(cinfo, k))
+    return out
+
+
+def check_dpg_diff(d: dict) -> None:
+    bad = []
+    if d["label_entries_differ"] > DPG_ENTRY_FRAC * d["label_entries"]:
+        bad.append("labels")
+    if d["sector_entries_differ"] > DPG_ENTRY_FRAC * d["sector_entries"]:
+        bad.append("sector_active")
+    if d["node_active_differ"] or d["num_contributors_card"] != d["num_contributors_cpu"]:
+        bad.append("node_active / num_contributors")
+    for k in ("num_added", "num_removed"):
+        if abs(d[f"{k}_card"] - d[f"{k}_cpu"]) > max(DPG_COUNT_ABS, DPG_COUNT_REL * d[f"{k}_cpu"]):
+            bad.append(k)
+    if abs(d["coverage_card"] - d["coverage_cpu"]) > DPG_COVERAGE_ATOL:
+        bad.append("coverage")
+    if bad:
+        raise AssertionError(f"DPG step: card and CPU disagree on {bad}: {d}")
+
+
+def dpg_step_phase():
+    """Phase 10a: one execute_dpg on bench_assets/session, card against
+    CPU; its time, host syncs and K1 launches. Returns K1's input."""
+    cfg = session_config()
+    gpu = load_checkpoint(ASSETS / "session", DEVICE).state
+    cpu = load_checkpoint(ASSETS / "session", "cpu").state
+    n_live = int(cpu.num_nodes)
+    before = gpu.labels.clone(), gpu.sector_active.clone(), gpu.node_active.clone()
+    dpg_step(cfg, gpu)  # warm: the constants, the allocator
+    (g_new, g_info), got = counted(lambda: dpg_step(cfg, gpu))
+    if got[K1] != 1:
+        raise AssertionError(f"one DPG step launched K1 {got[K1]} times")
+    _, syncs = count_syncs(lambda: change_detection.execute_dpg(cfg, gpu))
+    torch.cuda.synchronize()
+    wall, event = [], []
+    for _ in range(DPG_REPEATS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        change_detection.execute_dpg(cfg, gpu)
+        end.record()
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        event.append(start.elapsed_time(end))
+    if any(not torch.equal(a, b) for a, b in zip(before, (gpu.labels, gpu.sector_active, gpu.node_active))):
+        raise AssertionError("execute_dpg wrote into its input state")
+    t0 = time.perf_counter()
+    c_new, c_info = dpg_step(cfg, cpu)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    d = dpg_diff(g_new, c_new, g_info, c_info, n_live)
+    out = dict(nodes=n_live, pass0_nodes=int((cpu.pass_ids[:n_live] == 0).sum()),
+               wall_ms_median=float(np.median(wall)), event_ms_median=float(np.median(event)),
+               wall_ms=wall, cpu_ms=cpu_ms, host_syncs=syncs, k1_launches=got[K1], **d)
+    emit("dpg_step", **out)
+    check_dpg_diff(d)
+    if syncs != 0:
+        raise AssertionError(f"{syncs} host syncs inside execute_dpg")
+    return capture_icp_input(lambda: dpg_step(cfg, gpu)), out
+
+
+def dpg_k1_phase(k1_input):
+    """Phase 10b: K1 on the DPG step's captured batch against plain."""
+    args, kw = k1_input
+    pg = args[5]
+    C, T = args[2].shape[:2]
+    normals = icp.estimate_normals(args[2], args[3])
+    gate = kw["gate_multiplier"]
+    kw = dict(tgt_normals=normals, gate_multiplier=gate, min_correspondences=10, fitness_threshold=0.25,
+              min_overlap=pg.icp_min_overlap, sensor_noise_std=pg.icp_sensor_noise_std)
+    ker = icp_cuda.icp_align_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    ref = icp.icp_align_plain(*args, **kw)
+    err = compare("dpg_local_reg", ker, ref, pg, args[4], gate)
+    packed = icp_cuda.pack(*args[:4], normals, args[4], gate)
+    lay = layouts("dpg_local_reg", packed, pg, False, 20)
+    if lay["rows_max_abs_diff"] != 0.0:
+        raise AssertionError(f"DPG batch: rows at C = {lay['plan']} differ from C = 1 by {lay['rows_max_abs_diff']}")
+    bound_ms, bound_by = k1_bound(args, icp_cuda.run_kernel(*packed, pg, False), pg)
+    case = dict(pairs=int(C), sources=int(args[0].shape[1]), targets=int(T), iterations=pg.icp_maximum_iterations,
+                live_pairs=int(args[1].any(1).sum()), converged=int(ker.converged.sum()),
+                ms=cuda_ms(lambda: icp_cuda.icp_align_cuda(*args, **kw), 20),
+                plain_ms=cuda_ms(lambda: icp.icp_align_plain(*args, **kw), 3),
+                kernel_only_ms=cuda_ms(lambda: icp_cuda.run_kernel(*packed, pg, False), 20),
+                bound_ms=bound_ms, bound_by=bound_by, **lay)
+    emit("kernel_time", batch="dpg_local_reg", **case)
+    return err, case
+
+
+def dpg_scene_phase():
+    """Phase 10c: tests/test_dpg.py's two-pass box scene at full width,
+    online through observe_laser with DPG on; that test's bars."""
+    cfg = session_config()
+    base = dataset.make_office_world()
+    wps = dataset.office_loop_waypoints()
+    seqs = [dataset.simulate_sequence(base.add_box(2.0, 1.5, 1.0, 1.0), wps, cfg.scan, step=0.5, seed=3),
+            dataset.simulate_sequence(base.add_box(-3.0, 1.5, 1.0, 1.0), wps, cfg.scan, step=0.5, seed=4)]
+    eng = eng_mod.DpgSlamEngine(cfg, DEVICE)
+
+    def drive():
+        kfs, secs = [], []
+        for p, seq in enumerate(seqs):
+            if p:
+                eng.increment_pass()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = 0
+            for t in range(len(seq.scans)):
+                eng.observe_odometry(seq.odometry[t])
+                n += bool(eng.observe_laser(seq.scans[t]))
+            torch.cuda.synchronize()
+            kfs.append(n)
+            secs.append(time.perf_counter() - t0)
+        return kfs, secs
+
+    (kfs, secs), got = counted(drive)
+    n = eng.num_nodes()
+    labels = eng.state.labels[:n].cpu().numpy()
+    pass_ids = eng.state.pass_ids[:n].cpu().numpy()
+    layers = eng.map_layers()
+    added, removed = layers["dynamic_added"], layers["dynamic_removed"]
+    def near(pts, c):
+        return float((np.linalg.norm(pts - np.array(c), axis=1) < 1.5).mean()) if len(pts) else 0.0
+
+    grid, _ = eng.occupancy_grid()
+    info = {k: float(v) for k, v in eng.last_dpg_info._asdict().items()}
+    rem_nodes = np.where((labels == scan.REMOVED).any(axis=1))[0]
+    add_nodes = np.where((labels == scan.ADDED).any(axis=1))[0]
+    out = dict(scans_per_pass=[len(s.scans) for s in seqs], keyframes=kfs,
+               pass0_kf_per_s=kfs[0] / secs[0], pass1_dpg_kf_per_s=kfs[1] / secs[1],
+               added=int((labels == scan.ADDED).sum()), removed=int((labels == scan.REMOVED).sum()),
+               added_near_frac=near(added, (3.0, 5.5)), removed_near_frac=near(removed, (8.0, 5.5)),
+               pass0_sectors_off=int((~eng.state.sector_active[: kfs[0]]).sum()),
+               removed_on_pass0_only=bool(len(rem_nodes) and (pass_ids[rem_nodes] == 0).all()),
+               added_on_pass1_only=bool(len(add_nodes) and (pass_ids[add_nodes] == 1).all()),
+               last_info=info, map_layers={k: len(v) for k, v in layers.items()},
+               occupancy_values=sorted(int(v) for v in np.unique(grid)), occupancy_shape=list(grid.shape),
+               k1_launches=got[K1], jax_cpu_reference=DPG_SCENE_JAX)
+    emit("dpg_scene", **out)
+    bars = {"added > 0": out["added"] > 0, "removed > 0": out["removed"] > 0,
+            "added near new box > 0.9": out["added_near_frac"] > 0.9,
+            "removed near old box > 0.6": out["removed_near_frac"] > 0.6,
+            "removed on pass-0 nodes only": out["removed_on_pass0_only"],
+            "added on pass-1 nodes only": out["added_on_pass1_only"],
+            "a pass-0 sector deactivated": out["pass0_sectors_off"] > 0,
+            "K1 ran": got[K1] >= sum(kfs) + kfs[1]}
+    failed = [k for k, ok in bars.items() if not ok]
+    if failed:
+        raise AssertionError(f"DPG scene misses {failed}: {out}")
+    return out
+
+
+def run_dpg_offline(cfg, state, odom, scans, run_dpg: bool):
+    """process_sequence from `state` with its odometry gate re-anchored
+    (a fresh odometry stream in the same pass): (engine, mask, seconds)."""
+    eng = eng_mod.DpgSlamEngine(cfg, DEVICE)
+    eng.state = state._replace(odom_initialized=torch.zeros_like(state.odom_initialized))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mask = eng.process_sequence(odom, scans, run_dpg=run_dpg)
+    torch.cuda.synchronize()
+    return eng, mask, time.perf_counter() - t0
+
+
+def dpg_offline_phase():
+    """Phase 10d: process_sequence over DPG_OFFLINE_SCANS scans of the
+    office loop (seed 9) from bench_assets/session, pass 1, without and
+    with DPG (bench.py's bench_dpg part b)."""
+    cfg = session_config()
+    seq = dataset.simulate_sequence(dataset.make_office_world(), dataset.office_loop_waypoints(), cfg.scan,
+                                    step=0.5, seed=9, odom_noise_transl=0.02, odom_noise_rot=0.008)
+    odom, scans = seq.odometry[:DPG_OFFLINE_SCANS], seq.scans[:DPG_OFFLINE_SCANS]
+    state = load_checkpoint(ASSETS / "session", DEVICE).state
+    run = functools.partial(run_dpg_offline, cfg, state, odom, scans)
+    res = {}
+    for run_dpg in (False, True):
+        run(run_dpg)  # warm
+        res[run_dpg], got = counted(lambda: run(run_dpg))
+        res[run_dpg] += (got[K1],)
+    (e0, m0, s0, k0), (e1, m1, s1, k1) = res[False], res[True]
+    kf = int(m1.sum())
+    out = dict(scans=len(scans), keyframes=kf, kf_per_s_no_dpg=int(m0.sum()) / s0, kf_per_s_dpg=kf / s1,
+               dpg_ms_per_keyframe=1e3 * (s1 - s0) / max(kf, 1), same_keyframes=bool((m0 == m1).all()),
+               k1_launches_no_dpg=k0, k1_launches_dpg=k1,
+               last_info={k: float(v) for k, v in e1.last_dpg_info._asdict().items()} if e1.last_dpg_info else None)
+    emit("dpg_offline", **out)
+    if not out["same_keyframes"] or kf == 0 or e1.last_dpg_info is None or e0.last_dpg_info is not None:
+        raise AssertionError(f"offline DPG run: {out}")
+    if k1 != k0 + kf:
+        raise AssertionError(f"offline DPG: K1 launched {k1} times, {k0} without DPG, {kf} keyframes")
+    return out
+
+
+def dpg_phase():
+    """Phase 10: DPG change detection (10a-d), each part's seconds printed;
+    returns K1's DPG case."""
+    marks = [time.perf_counter()]
+    k1_input, _ = dpg_step_phase()
+    marks.append(time.perf_counter())
+    err, case = dpg_k1_phase(k1_input)
+    marks.append(time.perf_counter())
+    dpg_scene_phase()
+    marks.append(time.perf_counter())
+    dpg_offline_phase()
+    marks.append(time.perf_counter())
+    emit("dpg_seconds", **{part: b - a for part, a, b in zip(("10a", "10b", "10c", "10d"), marks, marks[1:])},
+         total=marks[-1] - marks[0])
+    return err, case
 
 
 def main() -> None:
@@ -973,6 +1250,7 @@ def main() -> None:
     offline_phase(kf_dense)
     _, (batched_err, batched_k1), batched_k2 = batched_phase(len(kf_dense[1]) / kf_dense[2])
     times["batched_step"] = batched_k1
+    dpg_err, times["dpg_local_reg"] = dpg_phase()
     for name, launches in LAUNCHED.items():
         if launches == 0:
             raise AssertionError(f"the paths never launched {name}")
@@ -986,7 +1264,7 @@ def main() -> None:
             "source": "dpg_slam_tpu_torch/csrc/icp_kernel.cu",
             "replaces": "dpg_slam_tpu/ops/icp_pallas.py:170",
             "launches": LAUNCHED[K1],
-            "max_abs_err": max(worst, batched_err),
+            "max_abs_err": max(worst, batched_err, dpg_err),
             "ms": ro["ms"],
             "plain_ms": ro["plain_ms"],
             "bound_ms": ro["bound_ms"],

@@ -12,12 +12,15 @@ module layout so each module's counterpart is found by path:
   ops.schur  — batched SPD solve (plain PyTorch); on a CUDA tensor it
                launches the hand-written kernel in ops.schur_cuda
                (csrc/spd_solve_kernel.cu)
+  ops.raster — occupancy rasterization into dense int8 windows
   graph      — factor-graph LM solver
   parallel   — sharded ICP, edge-sharded CG, Schur-elimination solve and
                distributed reoptimize over S shards on one device
-  engine     — SLAM session engine: online keyframe path, offline
-               process_sequence and the pass-boundary reoptimize (DPG
-               change detection is not ported yet)
+  dpg        — DPG change detection (execute_dpg), map layers and the
+               occupancy snapshot
+  engine     — SLAM session engine: online keyframe path with a DPG step
+               on every keyframe of pass >= 1, offline process_sequence
+               and the pass-boundary reoptimize
   batch      — session-batched mode: S sessions' keyframes a step, their
                ICP pairs in one call (process_sessions_batched)
   utils      — checkpoint loading (reads the JAX package's npz), metrics

@@ -1,21 +1,18 @@
 """SLAM session engine — the port of dpg_slam_tpu/engine.py: the online
-keyframe path, the offline sequence mode (process_sequence) and the
-pass-boundary reoptimize.
+keyframe path, the offline sequence mode (process_sequence), the
+pass-boundary reoptimize and, on every keyframe of pass >= 1, DPG change
+detection (dpg.execute_dpg).
 
 The state is a NamedTuple of fixed-capacity tensors with the JAX
 package's field names and shapes, so a JAX checkpoint loads unchanged
 (utils/checkpoint.py). Host decisions the JAX package takes under jit
 with ``jnp.where`` on scalars (pass-first node, has-predecessor) are
 Python branches here on values read from the device.
-
-DPG change detection is not ported: with ``_dpg_enabled`` (True, as in
-the JAX engine) a keyframe on pass >= 1 raises NotImplementedError, as do
-map_layers / occupancy_grid / map_points. Callers that track several
-passes without DPG set ``_dpg_enabled = False`` first.
 """
 
 from __future__ import annotations
 
+import logging
 import warnings
 from typing import NamedTuple
 
@@ -24,12 +21,13 @@ import torch
 
 from dpg_slam_tpu_torch import geom, scan
 from dpg_slam_tpu_torch.config import DpgConfig
+from dpg_slam_tpu_torch.dpg import change_detection
 from dpg_slam_tpu_torch.graph import factor_graph as fg
 from dpg_slam_tpu_torch.ops import icp
 
 __all__ = ["SlamState", "DpgSlamEngine"]
 
-_NOT_PORTED_DPG = "DPG change detection is not ported yet (ROADMAP.md Queue 1)"
+logger = logging.getLogger(__name__)
 
 
 class SlamState(NamedTuple):
@@ -384,13 +382,14 @@ class _Gate(NamedTuple):
 
 
 def _process_sequence(cfg: DpgConfig, state: SlamState, odometry: np.ndarray, scans: np.ndarray,
-                      solve_method: str, pipelined: bool = False):
+                      solve_method: str, pipelined: bool = False, run_dpg: bool = False):
     """A recorded session as one host loop over its scans (the JAX
     package's lax.scan program): odometry update, keyframe gate, capacity
     gate and, on a keyframe, the keyframe step with the solve at full node
-    capacity. Returns (state, keyframe mask (T,), saturated): saturated is
-    True when a scan passed the gate but was dropped for lack of node,
-    edge or prior capacity (the online path raises instead).
+    capacity, then, with run_dpg on pass >= 1, a DPG step. Returns (state,
+    keyframe mask (T,), info of the last DPG step or None, saturated):
+    saturated is True when a scan passed the gate but was dropped for lack
+    of node, edge or prior capacity (the online path raises instead).
 
     The gate runs on a host copy of the state's five gate fields, with the
     online path's own functions (in the CPU's float32 arithmetic, where
@@ -402,7 +401,8 @@ def _process_sequence(cfg: DpgConfig, state: SlamState, odometry: np.ndarray, sc
     pipelined: the solve of keyframe k runs at the next scan, beside the
     frontend of that scan's keyframe, if any, which reads the unsolved
     poses (a one-solve lag); the rows that existed before that frontend
-    take the solved poses, and a catch-up solve follows the last scan."""
+    take the solved poses, and a catch-up solve follows the last scan. It
+    runs no DPG."""
     cap = cfg.capacity
     N = state.poses.shape[0]
     edges_worst = 2 + cfg.pose_graph.max_loop_closures_per_node
@@ -416,6 +416,8 @@ def _process_sequence(cfg: DpgConfig, state: SlamState, odometry: np.ndarray, sc
     rows = torch.arange(N, device=dev)[:, None]
     kf_mask = np.zeros(len(scans), bool)
     saturated = pending = False
+    run_dpg = run_dpg and int(state.pass_number) >= 1  # a sequence stays in one pass
+    info = None
     for t in range(len(scans)):
         state = _observe_odometry(cfg, state, odom_dev[t])
         gate = _observe_odometry(cfg, gate, odom_host[t])
@@ -440,6 +442,8 @@ def _process_sequence(cfg: DpgConfig, state: SlamState, odometry: np.ndarray, sc
             pending = do_kf
         elif do_kf:
             state = _keyframe_step(cfg, state, scans_dev[t], solve_method)
+            if run_dpg:
+                state, info = change_detection.execute_dpg(cfg, state)
         if do_kf:
             kf_mask[t] = True
             n_nodes += 1
@@ -452,7 +456,7 @@ def _process_sequence(cfg: DpgConfig, state: SlamState, odometry: np.ndarray, sc
             )
     if pending:
         state = _keyframe_solve(cfg, state, solve_method)
-    return state, kf_mask, saturated
+    return state, kf_mask, info, saturated
 
 
 # ---------------------------------------------------------------------------
@@ -695,10 +699,10 @@ class DpgSlamEngine:
       eng = DpgSlamEngine(DpgConfig())   # on the card; device="cpu" for the CPU
       for odom, ranges in dataset:
           eng.observe_odometry(odom)
-          eng.observe_laser(ranges)
-      eng._dpg_enabled = False   # DPG is not ported yet
-      eng.increment_pass()       # session boundary: global reoptimize
+          eng.observe_laser(ranges)   # on pass >= 1 also a DPG step
+      eng.increment_pass()            # session boundary: global reoptimize
       traj = eng.trajectory()
+      layers = eng.map_layers()       # DPG map layers as host arrays
     """
 
     def __init__(self, config: DpgConfig | None = None, device="cuda", mesh=None):
@@ -713,6 +717,8 @@ class DpgSlamEngine:
         # Dense Cholesky up to ~1k nodes; CG beyond.
         self.solve_method = "dense" if config.capacity.max_nodes <= 1024 else "cg"
         self._dpg_enabled = True
+        self.last_dpg_info = None
+        self._coverage_warned_pass = -1
         self.mesh = mesh
         if mesh is not None and config.capacity.max_edges % mesh.size != 0:
             raise ValueError(
@@ -755,10 +761,10 @@ class DpgSlamEngine:
         mask. The keyframes are the online loop's; the per-keyframe solve
         runs at full node capacity, as in the JAX package. Where capacity
         runs out, later keyframes are dropped with a warning (the online
-        path raises). pipelined: see _process_sequence (implies no DPG).
-        run_dpg defaults to the engine's DPG setting; DPG is not ported,
-        so a run that would reach it (pass >= 1) raises before touching
-        the state."""
+        path raises). run_dpg (default: the engine's DPG setting) runs a
+        DPG step after each keyframe on pass >= 1; last_dpg_info takes the
+        last one's info. pipelined: see _process_sequence (implies no
+        DPG)."""
         odometry = np.asarray(odometry, np.float32)
         scans = np.asarray(scans, np.float32)
         B = self.config.scan.num_beams
@@ -766,13 +772,13 @@ class DpgSlamEngine:
             raise ValueError(f"expected (T, {B}) scans, got {scans.shape}")
         if odometry.shape != (scans.shape[0], 3):
             raise ValueError(f"expected ({scans.shape[0]}, 3) odometry, got {odometry.shape}")
-        dpg = self._dpg_enabled if run_dpg is None else run_dpg
-        if dpg and not pipelined and int(self.state.pass_number) >= 1:
-            self._execute_dpg()
-        self.state, kf_mask, saturated = _process_sequence(
+        dpg = (self._dpg_enabled if run_dpg is None else run_dpg) and not pipelined
+        self.state, kf_mask, info, saturated = _process_sequence(
             self.config, self.state, odometry, scans,
-            self._incremental_method(self.config.capacity.max_nodes), pipelined,
+            self._incremental_method(self.config.capacity.max_nodes), pipelined, dpg,
         )
+        if info is not None:
+            self.last_dpg_info = info
         if saturated:
             cap = self.config.capacity
             warnings.warn(
@@ -798,14 +804,12 @@ class DpgSlamEngine:
         edges_worst_case = 2 + self.config.pose_graph.max_loop_closures_per_node
         if int(self.state.graph.num_edges) + edges_worst_case > self.config.capacity.max_edges:
             raise RuntimeError("edge capacity exhausted; raise CapacityParams.max_edges")
-        if self._dpg_enabled and int(self.state.pass_number) >= 1:
-            # The JAX engine runs DPG right after this keyframe; raise before
-            # touching the state rather than leave a half-processed keyframe.
-            self._execute_dpg()
         bucket = self._solve_bucket(n + 1)
         self.state = _keyframe_step(
             self.config, self.state, ranges, self._incremental_method(bucket), solve_bucket=bucket
         )
+        if self._dpg_enabled and int(self.state.pass_number) >= 1:
+            self._execute_dpg()
         return True
 
     def increment_pass(self) -> None:
@@ -868,16 +872,51 @@ class DpgSlamEngine:
             )
 
     def _execute_dpg(self) -> None:
-        raise NotImplementedError(_NOT_PORTED_DPG)
+        self.state, self.last_dpg_info = change_detection.execute_dpg(self.config, self.state)
+        # The submap holds at most max_submap_nodes contributors: surface
+        # the reference's unmet-coverage warning (dpg_slam.cc:697-699),
+        # once a pass.
+        threshold = self.config.dpg.current_pose_graph_coverage_threshold
+        pass_no = int(self.state.pass_number)
+        if pass_no != self._coverage_warned_pass:
+            coverage = float(self.last_dpg_info.coverage)
+            if coverage < threshold:
+                self._coverage_warned_pass = pass_no
+                mode = "coverage-growth" if self.config.dpg.submap_coverage_growth else "nearest"
+                logger.warning(
+                    "DPG submap coverage %.2f below threshold %.2f for pass %d (submap capped at %d %s contributors)",
+                    coverage, threshold, pass_no, self.config.dpg.max_submap_nodes, mode,
+                )
 
     def map_layers(self) -> dict:
-        raise NotImplementedError(_NOT_PORTED_DPG)
+        """The four DPG map layers as host arrays: name -> (P, 2) points."""
+        layers = change_detection.map_layers(self.config, self.state)
+        return {name: pts.cpu().numpy()[mask.cpu().numpy()] for name, (pts, mask) in layers.items()}
 
     def occupancy_grid(self, center=None, extent: int = 512, include_inactive: bool = False):
-        raise NotImplementedError(_NOT_PORTED_DPG)
+        """Dense occupancy grid of the session (toOccGridMsg analog):
+        ((extent, extent) int8 UNKNOWN=0 / FREE=1 / OCCUPIED=2, world origin
+        (2,)), centered on the keyframes' mean position by default."""
+        if center is None:
+            center = self.state.poses[: max(self.num_nodes(), 1), :2].cpu().numpy().mean(axis=0)
+        grid, origin = change_detection.occupancy_snapshot(
+            self.config, self.state, self._tensor(center), extent=extent, include_inactive=include_inactive
+        )
+        return grid.cpu().numpy(), origin.cpu().numpy()
 
-    def map_points(self, subsample: int | None = None):
-        raise NotImplementedError(_NOT_PORTED_DPG)
+    def map_points(self, subsample: int | None = None) -> np.ndarray:
+        """All valid scan points in the map frame, thinned (GetMap,
+        dpg_slam.cc:555-575)."""
+        sub = subsample or self.config.viz.display_points_fraction
+        n = self.num_nodes()
+        if n == 0:
+            return np.zeros((0, 2))
+        pts_bl = scan.points_in_base_link(
+            self.state.ranges[:n], self.config.scan, _laser_pose_in_bl(self.config, self.device)
+        )
+        pts_map = geom.apply(self.state.poses[:n, None, :], pts_bl)
+        valid = scan.valid_mask(self.state.labels[:n])
+        return pts_map.reshape(-1, 2).cpu().numpy()[valid.reshape(-1).cpu().numpy()][::sub]
 
     # -- queries ----------------------------------------------------------
     def pose(self) -> np.ndarray:

@@ -1,7 +1,8 @@
 """Kernels K1 (csrc/icp_kernel.cu) and K2 (csrc/spd_solve_kernel.cu) on a
 CUDA card against their plain PyTorch versions, and the port's keyframe
-path, dense_pallas solve, Schur reoptimize and session-batched mode on the
-card against the CPU; the batched step loop makes no host sync.
+path, dense_pallas solve, Schur reoptimize, session-batched mode and DPG
+step on the card against the CPU; neither the batched step loop nor the
+DPG step makes a host sync.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. The file
 imports no JAX, so it runs on a machine without it:
@@ -19,18 +20,21 @@ equal to the bit. Card vs CPU runs of the solvers:
 1e-2 m / rad, chip_smoke.py's bound for the engine.
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
 from dpg_slam_tpu_torch import batch, geom
 from dpg_slam_tpu_torch.config import CapacityParams, DpgConfig, PoseGraphParams, ScanParams
+from dpg_slam_tpu_torch.dpg import change_detection
 from dpg_slam_tpu_torch.engine import DpgSlamEngine
 from dpg_slam_tpu_torch.graph import factor_graph as fg
 from dpg_slam_tpu_torch.io import dataset
 from dpg_slam_tpu_torch.ops import icp, icp_cuda, schur, schur_cuda
 from dpg_slam_tpu_torch.parallel import distributed_reoptimize, make_mesh
-from dpg_slam_tpu_torch.utils.checkpoint import state_from_numpy, state_to_numpy
+from dpg_slam_tpu_torch.utils.checkpoint import load_checkpoint, state_from_numpy, state_to_numpy
 
 
 @pytest.fixture
@@ -443,3 +447,74 @@ def test_kernel_matches_plain_on_a_batched_step(cuda):
     both = ker.converged == ref.converged
     assert both.float().mean().item() >= 0.99 and ker.converged.any()
     torch.testing.assert_close(ker.covariance[both], ref.covariance[both], rtol=0.05, atol=1e-7)
+
+
+SESSION = pathlib.Path(__file__).parent.parent / "bench_assets" / "session"
+
+
+@pytest.mark.cuda
+def test_dpg_step_on_card_matches_cpu(cuda):
+    """One execute_dpg on bench_assets/session (full width: 1,024 beams, a
+    1024² window, M = 32, local registration on) on the card against the
+    CPU, within chip_smoke.py phase 10a's bounds (0.1 % of the label and
+    sector entries; node_active and the contributor count equal); the step
+    launches K1 once and reads no host value."""
+    cfg = load_checkpoint(SESSION, "cpu").config
+    cpu = load_checkpoint(SESSION, "cpu").state
+    gpu = load_checkpoint(SESSION, cuda).state
+    change_detection.execute_dpg(cfg, gpu)  # first use: constants
+    torch.cuda.synchronize()
+    before = icp_cuda.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g_new, g_info = change_detection.execute_dpg(cfg, gpu)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert icp_cuda.LAUNCHES == before + 1
+    c_new, c_info = change_detection.execute_dpg(cfg, cpu)
+    n = int(cpu.num_nodes)
+    assert (g_new.labels[:n].cpu() != c_new.labels[:n]).sum().item() <= 1e-3 * n * cfg.scan.num_beams
+    assert (g_new.sector_active[:n].cpu() != c_new.sector_active[:n]).sum().item() <= 1e-3 * n * cfg.dpg.num_sectors
+    assert torch.equal(g_new.node_active.cpu(), c_new.node_active)
+    assert int(g_info.num_contributors) == int(c_info.num_contributors) > 0
+    assert abs(float(g_info.coverage) - float(c_info.coverage)) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_the_dpg_batch(cuda):
+    """K1 on the DPG local registration's batch captured from a step on
+    bench_assets/session (5 chain scans of 256 points against 2,048 submap
+    points, 12 iterations) against the plain version; every cluster size
+    gives the one-CTA rows to the bit."""
+    eng = load_checkpoint(SESSION, cuda)
+    calls = []
+    real = icp.icp_align
+
+    def capture(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    icp.icp_align = capture
+    try:
+        change_detection.execute_dpg(eng.config, eng.state)
+    finally:
+        icp.icp_align = real
+    (args, kw), = calls
+    assert args[0].shape == (5, 256, 2) and args[2].shape == (5, 2048, 2)
+    pg = args[5]
+    assert pg.icp_maximum_iterations == 12
+    normals = icp.estimate_normals(args[2], args[3])
+    kw = dict(kw, tgt_normals=normals, min_correspondences=10, fitness_threshold=0.25,
+              min_overlap=pg.icp_min_overlap, sensor_noise_std=pg.icp_sensor_noise_std)
+    ker = icp_cuda.icp_align_cuda(*args, **kw)
+    ref = icp.icp_align_plain(*args, **kw)
+    torch.testing.assert_close(ker.transform, ref.transform, rtol=0, atol=5e-4)
+    torch.testing.assert_close(ker.fitness, ref.fitness, rtol=0, atol=1e-4)
+    both = ker.converged == ref.converged
+    assert both.all() and ker.converged.any()
+    torch.testing.assert_close(ker.covariance[both], ref.covariance[both], rtol=0.05, atol=1e-7)
+    packed = icp_cuda.pack(*args[:4], normals, args[4], kw["gate_multiplier"])
+    assert icp_cuda.launch_plan(5, 256, 2048, torch.cuda.get_device_properties(cuda).multi_processor_count) > 1
+    one = icp_cuda.run_kernel(*packed, pg, False, cluster=1)
+    for C in icp_cuda.CLUSTERS[1:]:
+        assert torch.equal(icp_cuda.run_kernel(*packed, pg, False, cluster=C), one), C

@@ -162,19 +162,33 @@ def test_reoptimize_valid_host_parity(one_pass, office_seq):
 
 
 def test_dpg_on_second_pass_raises(one_pass, office_seq):
-    _, te, _, _ = one_pass
-    _, te = _clone(one_pass[0], te)
-    te._dpg_enabled = False
+    """(Named for the NotImplementedError it once pinned.) The first pass-1
+    keyframe runs DPG (on by default) and matches JAX's: the same labels,
+    sectors and node activity, and last_dpg_info within 1e-6; map_layers,
+    occupancy_grid and map_points return."""
+    je, te = _clone(*one_pass[:2])
+    je.increment_pass()
     te.increment_pass()
-    te._dpg_enabled = True
-    te.observe_odometry(office_seq.odometry[0])
-    before = te.state
-    with pytest.raises(NotImplementedError, match="DPG"):
-        te.observe_laser(office_seq.scans[0])
-    assert te.state is before  # nothing half-applied
-    for call in (te.map_layers, te.occupancy_grid, te.map_points):
-        with pytest.raises(NotImplementedError, match="DPG"):
-            call()
+    assert te._dpg_enabled and je._dpg_enabled
+    for eng in (je, te):
+        eng.observe_odometry(office_seq.odometry[0])
+        assert eng.observe_laser(office_seq.scans[0])
+    n = je.num_nodes()
+    np.testing.assert_array_equal(te.state.labels[:n].numpy(), np.asarray(je.state.labels[:n]))
+    np.testing.assert_array_equal(te.state.sector_active[:n].numpy(), np.asarray(je.state.sector_active[:n]))
+    np.testing.assert_array_equal(te.state.node_active.numpy(), np.asarray(je.state.node_active))
+    for field in te.last_dpg_info._fields:
+        np.testing.assert_allclose(float(getattr(te.last_dpg_info, field)), float(getattr(je.last_dpg_info, field)),
+                                   atol=1e-6, err_msg=field)
+    assert int(te.last_dpg_info.num_contributors) > 0
+    want, got = je.map_layers(), te.map_layers()
+    assert set(got) == set(want)
+    for name in want:
+        assert got[name].shape == want[name].shape, name
+    grid, origin = te.occupancy_grid(extent=256)
+    assert grid.shape == (256, 256) and grid.dtype == np.int8 and set(np.unique(grid)) <= {0, 1, 2}
+    assert (grid == 2).sum() > 50 and origin.shape == (2,)
+    assert te.map_points().shape == je.map_points().shape
 
 
 def test_relative_odometry_matches_jax(office_seq):
@@ -314,14 +328,28 @@ def test_offline_sequence_respects_capacity(office_seq):
 
 
 def test_process_sequence_dpg_raises_before_the_state_changes(offline, office_seq):
-    """On pass >= 1 with DPG on, process_sequence raises (DPG is not
-    ported) and leaves the state as it was."""
+    """(Named for the NotImplementedError it once pinned.) On pass 1 with
+    DPG on, process_sequence runs a DPG step after each keyframe: the
+    online loop's keyframes and labels, and last_dpg_info; a scans array
+    of the wrong width still raises ValueError."""
     src = offline[0][False][1]
+    s = src.state
+    pass1 = s._replace(
+        pass_number=torch.ones_like(s.pass_number), odom_initialized=torch.zeros_like(s.odom_initialized),
+        first_scan_for_pass=torch.ones_like(s.first_scan_for_pass), cumulative_dist=torch.zeros_like(s.cumulative_dist),
+    )
     te = teng.DpgSlamEngine(src.config, "cpu")
-    te.state = src.state._replace(pass_number=torch.ones_like(src.state.pass_number))
-    before = te.state
-    with pytest.raises(NotImplementedError, match="DPG"):
-        te.process_sequence(office_seq.odometry, office_seq.scans)
-    assert te.state is before
+    te.state = pass1
+    mask = te.process_sequence(office_seq.odometry[:24], office_seq.scans[:24])
+    online = teng.DpgSlamEngine(src.config, "cpu")
+    online.state = pass1
+    kf_online = [t for t in range(24) if (online.observe_odometry(office_seq.odometry[t]) or
+                                          online.observe_laser(office_seq.scans[t]))]
+    assert list(np.flatnonzero(mask)) == kf_online and len(kf_online) >= 3
+    assert te.last_dpg_info is not None and online.last_dpg_info is not None
+    assert int(te.last_dpg_info.num_contributors) == int(online.last_dpg_info.num_contributors) > 0
+    n = te.num_nodes()
+    np.testing.assert_array_equal(te.state.labels[:n].numpy(), online.state.labels[:n].numpy())
+    assert src.state is s  # the source engine's state is untouched
     with pytest.raises(ValueError, match="scans"):
         te.process_sequence(office_seq.odometry, office_seq.scans[:, :10], run_dpg=False)

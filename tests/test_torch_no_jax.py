@@ -1,8 +1,8 @@
 """The port stands without JAX: no module of dpg_slam_tpu_torch (nor
-chip_smoke.py) imports jax or dpg_slam_tpu, the package runs keyframes,
-the offline sequence mode and the session-batched mode in a process where
-jax cannot be imported, and chip_smoke.py refuses to run without a CUDA
-card."""
+chip_smoke.py) imports jax or dpg_slam_tpu, the package runs keyframes, a
+second pass with DPG change detection and its map layers, the offline
+sequence mode and the session-batched mode in a process where jax cannot
+be imported, and chip_smoke.py refuses to run without a CUDA card."""
 
 import ast
 import os
@@ -28,6 +28,7 @@ def _imported_roots(path):
 def test_no_source_imports_jax():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert {PKG / "dpg" / "change_detection.py", PKG / "ops" / "raster.py"} <= set(files)
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "dpg_slam_tpu"}
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
@@ -37,13 +38,14 @@ _BLOCKED_RUN = """
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import numpy as np
-from dpg_slam_tpu_torch.config import CapacityParams, DpgConfig, PoseGraphParams, ScanParams
+from dpg_slam_tpu_torch.config import CapacityParams, DpgConfig, DpgParams, PoseGraphParams, ScanParams
 from dpg_slam_tpu_torch.engine import DpgSlamEngine
 from dpg_slam_tpu_torch.io import dataset
 
 cfg = DpgConfig(
     scan=ScanParams(num_beams=128),
     pose_graph=PoseGraphParams(icp_max_points=32, icp_maximum_iterations=10, max_loop_closures_per_node=2),
+    dpg=DpgParams(max_submap_nodes=8),
     capacity=CapacityParams(max_nodes=16, max_edges=64, max_priors=4),
 )
 seq = dataset.simulate_sequence(
@@ -58,6 +60,17 @@ while eng.num_nodes() < 3:
 traj = eng.trajectory()
 assert traj.shape == (3, 3) and np.isfinite(traj).all()
 
+# A second pass with DPG on (the default) and its map layers.
+eng.increment_pass()
+t = 0
+while eng.num_nodes() < 5:
+    eng.observe_odometry(seq.odometry[t])
+    eng.observe_laser(seq.scans[t])
+    t += 1
+assert eng.last_dpg_info is not None and int(eng.last_dpg_info.num_contributors) > 0
+layers = eng.map_layers()
+assert len(layers["active_static"]) > 0
+
 # The offline sequence mode and the session-batched mode, on 12 scans.
 from dpg_slam_tpu_torch import batch
 seqs = [seq, dataset.simulate_sequence(dataset.make_office_world(), dataset.office_loop_waypoints(), cfg.scan,
@@ -69,7 +82,8 @@ assert counts[0] == int(kf.sum()) == off.num_nodes() == int(batch.session_state(
 assert np.isfinite(states.poses.numpy()).all()
 assert not any(m == "jax" or m.startswith(("jax.", "dpg_slam_tpu.")) or m == "dpg_slam_tpu"
                for m in sys.modules if sys.modules[m] is not None)
-print("three keyframes", int(eng.state.graph.num_edges), "batched lanes", counts)
+print("three keyframes", int(eng.state.graph.num_edges), "dpg layers", len(layers["active_static"]),
+      "batched lanes", counts)
 """
 
 
@@ -86,7 +100,7 @@ def test_port_runs_with_jax_blocked():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert "three keyframes" in proc.stdout and "batched lanes" in proc.stdout
+    assert "three keyframes" in proc.stdout and "dpg layers" in proc.stdout and "batched lanes" in proc.stdout
 
 
 def _assert_refused(proc):

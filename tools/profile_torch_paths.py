@@ -8,14 +8,16 @@ Runs each path of chip_smoke.py once to warm up, once under torch.profiler
 keyframe (bench_assets/keyframe continuation, solve_method "dense" and
 "dense_pallas"), offline (process_sequence over the same scans),
 reoptimize (bench_assets/session increment_pass, "dense" and
-"dense_pallas"), the 4-shard Schur reoptimize through K2, and the
+"dense_pallas"), the 4-shard Schur reoptimize through K2, the
 session-batched mode at chip_smoke.py phase 9's configuration (16
-simulated sessions of 3 office laps). Prints one JSON line per path:
+simulated sessions of 3 office laps), one DPG step on bench_assets/session
+and phase 10d's process_sequence with DPG. Prints one JSON line per path:
 unprofiled wall ms, device busy ms (sum of CUDA kernel and memcpy
 intervals), idle share of the unprofiled wall, kernel launches (and per
 keyframe on the keyframe paths), the top kernels by device time (name,
-ms, launches), and the device ms and launches of K1 and K2. The first
-line is the card's nvidia-smi name and power limit.
+ms, launches), the device ms and launches of K1 and K2, and K1's share of
+the busy time. The first line is the card's nvidia-smi name and power
+limit.
 """
 
 from __future__ import annotations
@@ -46,6 +48,20 @@ def run_batched():
                           solve_gn_iterations=cs.BATCH_GN)
 
 
+@functools.cache
+def dpg_inputs():
+    cfg = cs.session_config()
+    seq = cs.dataset.simulate_sequence(cs.dataset.make_office_world(), cs.dataset.office_loop_waypoints(), cfg.scan,
+                                       step=0.5, seed=9, odom_noise_transl=0.02, odom_noise_rot=0.008)
+    state = cs.load_checkpoint(cs.ASSETS / "session", cs.DEVICE).state
+    return cfg, state, seq.odometry[: cs.DPG_OFFLINE_SCANS], seq.scans[: cs.DPG_OFFLINE_SCANS]
+
+
+def run_dpg_step():
+    cfg, state, _, _ = dpg_inputs()
+    return cs.dpg_step(cfg, state)
+
+
 PATHS = {
     "keyframe_dense": lambda: cs.run_keyframes(cs.DEVICE),
     "keyframe_dense_pallas": lambda: cs.run_keyframes(cs.DEVICE, "dense_pallas"),
@@ -55,6 +71,8 @@ PATHS = {
     "reoptimize_dense": lambda: cs.run_reoptimize(cs.DEVICE),
     "reoptimize_dense_pallas": lambda: cs.run_reoptimize(cs.DEVICE, "dense_pallas"),
     "schur_4_shards_k2": lambda: cs.session_schur(True),
+    "dpg_step": run_dpg_step,
+    "offline_dpg": lambda: cs.run_dpg_offline(*dpg_inputs(), True),
 }
 
 # The port's hand-written kernels, by the names of their CUDA kernels.
@@ -101,7 +119,7 @@ def main() -> None:
             "idle_share": max(0.0, 1.0 - busy / wall), "device_ops": launches, "keyframes": kf,
             "device_ops_per_keyframe": launches / kf if kf else None,
             "top": [[k[:60], v, count[k]] for k, v in top],
-            "kernels_ms_launches": ours,
+            "kernels_ms_launches": ours, "k1_share": ours["K1"][0] / busy if busy else None,
         }), flush=True)
 
 
