@@ -16,19 +16,23 @@ module layout so each module's counterpart is found by path:
   graph      — factor-graph LM solver
   parallel   — sharded ICP, edge-sharded CG, Schur-elimination solve and
                distributed reoptimize over S shards on one device
-  dpg        — DPG change detection (execute_dpg), map layers and the
-               occupancy snapshot
+  dpg        — DPG change detection (execute_dpg, and execute_dpg_lanes
+               over a lane axis), map layers and the occupancy snapshot
   engine     — SLAM session engine: online keyframe path with a DPG step
                on every keyframe of pass >= 1, offline process_sequence
                and the pass-boundary reoptimize
   batch      — session-batched mode: S sessions' keyframes a step, their
-               ICP pairs in one call (process_sessions_batched)
+               ICP pairs in one call (process_sessions_batched); the
+               multipass mode over S lanes, with every lane's DPG step and
+               pass-boundary reoptimize batched
+               (process_sessions_multipass, batched_increment_pass)
   utils      — checkpoint loading (reads the JAX package's npz), metrics
   io         — synthetic worlds and sequences
 
 Rules: the package imports torch and numpy, never jax or dpg_slam_tpu.
-Entry points (DpgSlamEngine, process_sessions_batched, load_checkpoint,
-make_mesh) run on the card unless the caller names another device; below
+Entry points (DpgSlamEngine, process_sessions_batched,
+process_sessions_multipass, load_checkpoint, make_mesh) run on the card
+unless the caller names another device; below
 them every function works on the device of the tensors it is given.
 """
 
@@ -49,7 +53,12 @@ from dpg_slam_tpu_torch.config import (  # noqa: E402
     VisualizationParams,
 )
 from dpg_slam_tpu_torch import geom, scan  # noqa: E402
-from dpg_slam_tpu_torch.batch import process_sessions_batched, session_state  # noqa: E402
+from dpg_slam_tpu_torch.batch import (  # noqa: E402
+    batched_increment_pass,
+    process_sessions_batched,
+    process_sessions_multipass,
+    session_state,
+)
 
 __version__ = "0.1.0"
 
@@ -61,6 +70,8 @@ __all__ = [
     "VisualizationParams",
     "geom",
     "scan",
+    "batched_increment_pass",
     "process_sessions_batched",
+    "process_sessions_multipass",
     "session_state",
 ]

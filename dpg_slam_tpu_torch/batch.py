@@ -23,6 +23,14 @@ keep their graph and gate scalars. The solve is the lane-batched LM
 (`graph.factor_graph.solve_batched`). With the lanes solve methods no
 step reads the host: the host reads before the loop (the schedule, the
 node bucket) and after it.
+
+The multipass mode (`process_sessions_multipass`) runs the reference's
+whole execution model on the lanes: one keyframe loop a pass, with the
+lanes' DPG step (`dpg.change_detection.execute_dpg_lanes`, one K1 launch
+for every lane's local registration) after every keyframe step of pass
+>= 1, and between passes `batched_increment_pass`: every lane's
+reoptimize sweep in one K1 launch, then each lane's graph rebuilt and
+solved. The pass boundary reads the host, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -36,14 +44,17 @@ import torch
 from dpg_slam_tpu_torch import engine as eng
 from dpg_slam_tpu_torch import geom
 from dpg_slam_tpu_torch.config import DpgConfig
+from dpg_slam_tpu_torch.dpg import change_detection
 from dpg_slam_tpu_torch.engine import SlamState
 from dpg_slam_tpu_torch.graph import factor_graph as fg
 from dpg_slam_tpu_torch.ops import icp
 
 __all__ = [
+    "batched_increment_pass",
     "keyframe_schedule",
     "pack_sessions",
     "process_sessions_batched",
+    "process_sessions_multipass",
     "session_state",
 ]
 
@@ -366,6 +377,17 @@ def _batched_solve(cfg: DpgConfig, states: SlamState, solve_method: str, nb: int
     return poses
 
 
+def _lanes_dpg(cfg: DpgConfig, states: SlamState, valid: torch.Tensor) -> SlamState:
+    """The DPG step on every lane (change_detection.execute_dpg_lanes),
+    its labels, sector_active and node_active adopted where `valid` (the
+    lanes that took a keyframe this step); nothing else changes."""
+    new, _ = change_detection.execute_dpg_lanes(cfg, states)
+    return states._replace(**{
+        f: torch.where(valid.view((-1,) + (1,) * (getattr(new, f).ndim - 1)), getattr(new, f), getattr(states, f))
+        for f in ("labels", "sector_active", "node_active")
+    })
+
+
 def _process_sessions_batched(
     cfg: DpgConfig,
     states: SlamState,
@@ -377,12 +399,15 @@ def _process_sessions_batched(
     solve_stride: int = 1,
     solve_gn_iterations: int | None = None,
     solve_cg_iterations: int | None = None,
+    run_dpg: bool = False,
 ) -> SlamState:
     """The keyframe loop: each step runs one keyframe of every lane; the
     solve runs after every `solve_stride` steps over each lane with a
     keyframe in that group (1 = the reference's solve per keyframe; the
     last group's solve covers the whole graph). Km must divide by the
-    stride. Updates `states`' tensors in place."""
+    stride. run_dpg adds the lanes' DPG step after every keyframe step, in
+    the JAX package's order: after the solve at stride 1, before the
+    group's solve above it. Updates `states`' tensors in place."""
     Km = kf_odom.shape[0]
     if Km % solve_stride:
         raise ValueError(f"{Km} keyframe steps do not divide by solve_stride {solve_stride}")
@@ -390,9 +415,13 @@ def _process_sessions_batched(
     for g0 in range(0, Km, solve_stride):
         for k in range(g0, g0 + solve_stride):
             states = _lanes_keyframe(cfg, states, kf_odom[k], kf_scans[k], kf_valid[k])
+            if run_dpg and solve_stride > 1:
+                states = _lanes_dpg(cfg, states, kf_valid[k])
         live = kf_valid[g0:g0 + solve_stride].any(dim=0)
         solved = _batched_solve(cfg, states, solve_method, nb, solve_gn_iterations, solve_cg_iterations)
         states.poses[:, :nb] = torch.where(live[:, None, None], solved, states.poses[:, :nb])
+        if run_dpg and solve_stride == 1:
+            states = _lanes_dpg(cfg, states, kf_valid[g0])
     return states
 
 
@@ -430,22 +459,159 @@ def process_sessions_batched(
     return states, counts
 
 
-def _schedule(cfg: DpgConfig, sessions, solve_bucket: int | None, solve_method: str | None, solve_stride: int):
-    """The host's work before the loop: the packed keyframe steps
-    (kf_odom, kf_scans, kf_valid) padded to a multiple of the stride, the
-    keyframe counts, the node bucket and the solve method."""
+def _packed_steps(cfg: DpgConfig, sessions, solve_stride: int):
+    """pack_sessions' steps (kf_odom, kf_scans, kf_valid) padded to a
+    multiple of the stride, and the keyframe counts."""
     kf_odom, kf_scans, kf_valid, counts = pack_sessions(cfg, sessions)
     pad = (-kf_odom.shape[0]) % solve_stride
     if pad:
         kf_odom = np.concatenate([kf_odom, np.zeros((pad,) + kf_odom.shape[1:], np.float32)])
         kf_scans = np.concatenate([kf_scans, np.zeros((pad,) + kf_scans.shape[1:], np.float32)])
         kf_valid = np.concatenate([kf_valid, np.zeros((pad,) + kf_valid.shape[1:], bool)])
-    bucket = solve_bucket
-    if bucket is None:
-        bucket = 64
-        while bucket < max(counts) + 1:
-            bucket *= 2
-        bucket = min(bucket, cfg.capacity.max_nodes)
+    return (kf_odom, kf_scans, kf_valid), counts
+
+
+def _node_bucket(cfg: DpgConfig, n_slots: int) -> int:
+    """The smallest engine bucket, a power of two from 64, of at least
+    n_slots node slots, capped at the node capacity."""
+    bucket = 64
+    while bucket < n_slots:
+        bucket *= 2
+    return min(bucket, cfg.capacity.max_nodes)
+
+
+def _schedule(cfg: DpgConfig, sessions, solve_bucket: int | None, solve_method: str | None, solve_stride: int):
+    """The host's work before the loop: the packed keyframe steps
+    (kf_odom, kf_scans, kf_valid) padded to a multiple of the stride, the
+    keyframe counts, the node bucket and the solve method."""
+    steps, counts = _packed_steps(cfg, sessions, solve_stride)
+    bucket = _node_bucket(cfg, max(counts) + 1) if solve_bucket is None else solve_bucket
     method = solve_method or _solve_choice(cfg, bucket)
     _check_method(method)
-    return (kf_odom, kf_scans, kf_valid), counts, bucket, method
+    return steps, counts, bucket, method
+
+
+# ---------------------------------------------------------------------------
+# Multi-pass: the pass boundary of every lane, and the passes
+# ---------------------------------------------------------------------------
+
+def batched_increment_pass(cfg: DpgConfig, states: SlamState, solve_method: str = "dense") -> SlamState:
+    """Every lane's pass boundary (DpgSlamEngine.increment_pass per lane,
+    dpg_data_runner_main.cc:30-52): the global reoptimize, then pass_number
+    + 1, the first-scan flag set, the odometry gate re-anchored.
+
+    The host reads num_nodes, poses and pass_ids of all lanes once and
+    compacts each lane's live pairs (as the engine does), padded to a
+    common count B on a common power-of-two node bucket. Every lane's
+    compacted sweep goes into one icp_align call of S·B pairs (one K1
+    launch on the card); each lane's results are scattered back, its graph
+    rebuilt and solved on its own (fg.solve, as the engine's reoptimize).
+    Raises RuntimeError where a lane's factor candidates overflow the edge
+    capacity."""
+    S = states.poses.shape[0]
+    dev = states.poses.device
+    num_nodes = states.num_nodes.cpu().numpy()
+    nb = _node_bucket(cfg, int(num_nodes.max()))
+    poses_h = states.poses[:, :nb].cpu().numpy()
+    pass_ids_h = states.pass_ids[:, :nb].cpu().numpy()
+    compacted = [
+        eng._reoptimize_compaction_host(cfg, poses_h[s], pass_ids_h[s], int(num_nodes[s]), nb) for s in range(S)
+    ]
+    B = max(idx.shape[0] for idx, _, _ in compacted)
+    ci = np.zeros((S, B), np.int64)
+    cv = np.zeros((S, B), bool)
+    for s, (idx, val, _) in enumerate(compacted):
+        ci[s, : idx.shape[0]] = idx
+        cv[s, : val.shape[0]] = val
+    ci, cv = torch.as_tensor(ci, device=dev), torch.as_tensor(cv, device=dev)
+
+    lanes = [session_state(states, s) for s in range(S)]
+    pairs, args, kwargs, cval = zip(*(
+        eng._reoptimize_icp_inputs(cfg, eng._reoptimize_bucket(lanes[s], nb), ci[s], cv[s]) for s in range(S)
+    ))
+    res = icp.icp_align(
+        *(torch.cat(planes) for planes in zip(*(a[:5] for a in args))), cfg.pose_graph,
+        **{k: torch.cat([kw[k] for kw in kwargs]) for k in kwargs[0]},
+    )
+
+    poses, graphs = [], []
+    E = cfg.capacity.max_edges
+    for s in range(S):
+        lane_res = icp.ICPResult(*(x[s * B:(s + 1) * B] for x in res))
+        p, g, n_edge_cand = eng._reoptimize_finish(cfg, lanes[s], pairs[s], ci[s], cval[s], lane_res, solve_method, nb)
+        # The engine's host bound: the candidate count is read only where
+        # it can overflow.
+        if int(num_nodes[s]) - 1 + compacted[s][2] > E and int(n_edge_cand) > E:
+            raise RuntimeError(
+                f"lane {s}: reoptimize produced {int(n_edge_cand)} factor candidates but edge capacity is {E}"
+            )
+        poses.append(p)
+        graphs.append(g)
+    return states._replace(
+        poses=torch.stack(poses),
+        graph=fg.FactorGraph(*(torch.stack(x) for x in zip(*graphs))),
+        pass_number=states.pass_number + 1,
+        first_scan_for_pass=torch.ones_like(states.first_scan_for_pass),
+        odom_initialized=torch.zeros_like(states.odom_initialized),
+        cumulative_dist=torch.zeros_like(states.cumulative_dist),
+    )
+
+
+def process_sessions_multipass(
+    cfg: DpgConfig,
+    lane_passes: list[list[tuple[np.ndarray, np.ndarray]]],
+    solve_bucket: int | None = None,
+    solve_method: str | None = None,
+    solve_stride: int = 1,
+    solve_gn_iterations: int | None = None,
+    solve_cg_iterations: int | None = None,
+    run_dpg: bool = True,
+    device="cuda",
+) -> tuple[SlamState, list[list[int]]]:
+    """Multi-pass DPG-SLAM over S batched lanes on `device` (the card
+    unless the caller names another): the reference's execution model
+    (track, then at each pass boundary reoptimize, then track with a DPG
+    step per keyframe; dpg_data_runner_main.cc:30-52 + dpg_slam.cc:122-140)
+    as one batched keyframe loop a pass (_process_sessions_batched, with
+    the lanes' DPG step on pass >= 1 when run_dpg) and
+    batched_increment_pass between passes.
+
+    lane_passes: per lane, one (odometry (T, 3), scans (T, B)) stream a
+    pass; every lane has the same pass count. The solve arguments are
+    process_sessions_batched's; the default bucket covers each pass's
+    cumulative keyframes, and the reoptimize solves "dense" up to 1,024
+    node slots, "cg" above (the engine's choice). Raises ValueError where a
+    lane's cumulative keyframes exceed the node capacity.
+
+    Returns (the stacked SlamState, per-lane per-pass keyframe counts).
+    """
+    n_passes = {len(p) for p in lane_passes}
+    if len(n_passes) != 1:
+        raise ValueError(f"all lanes need the same pass count, got {n_passes}")
+    P = n_passes.pop()
+    S = len(lane_passes)
+    states = _stack_states(cfg, S, device)
+    reopt_method = "dense" if cfg.capacity.max_nodes <= 1024 else "cg"
+    counts: list[list[int]] = [[] for _ in range(S)]
+    for p in range(P):
+        steps, pcounts = _packed_steps(cfg, [lane_passes[s][p] for s in range(S)], solve_stride)
+        for s in range(S):
+            counts[s].append(pcounts[s])
+            total = sum(counts[s])
+            if total > cfg.capacity.max_nodes:
+                # The batched loop has no per-step capacity gate: rows past
+                # the capacity would overwrite the last node row.
+                raise ValueError(
+                    f"lane {s}: {total} cumulative keyframes exceed node capacity {cfg.capacity.max_nodes}; "
+                    "raise CapacityParams.max_nodes or shorten the passes"
+                )
+        bucket = _node_bucket(cfg, max(sum(c) for c in counts) + 1) if solve_bucket is None else solve_bucket
+        method = solve_method or _solve_choice(cfg, bucket)
+        _check_method(method)
+        states = _process_sessions_batched(
+            cfg, states, *(torch.as_tensor(x, device=device) for x in steps),
+            method, bucket, solve_stride, solve_gn_iterations, solve_cg_iterations, run_dpg and p >= 1,
+        )
+        if p < P - 1:
+            states = batched_increment_pass(cfg, states, reopt_method)
+    return states, counts

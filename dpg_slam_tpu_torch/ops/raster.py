@@ -67,12 +67,14 @@ def _grid_offsets(G: int, extent: int, device) -> torch.Tensor:
 
 def ray_cells(laser_poses, points_map, origin, resolution: float, march_steps: int):
     """(G, B, S, 2) cells of the FREE march: t in {0, 1/S, ..., (S-1)/S},
-    point = laser + t * (end - laser)."""
+    point = laser + t * (end - laser). origin: (2,) or (G, 1, 2)."""
     dev = points_map.device
     t = true_div(torch.arange(march_steps, dtype=torch.float32, device=dev), float(march_steps))
     t = t[None, None, :, None]
     start = laser_poses[:, None, None, 0:2]
     end = points_map[:, :, None, :]
+    if origin.ndim > 1:
+        origin = origin[:, None]
     return world_to_cell(start + t * (end - start), origin, resolution)
 
 
@@ -83,7 +85,7 @@ def fill_at(grid: torch.Tensor, flat_idx: torch.Tensor, value) -> torch.Tensor:
 def rasterize_endpoints(
     points_map: torch.Tensor,     # (G, B, 2) scan endpoints in map frame
     occupied_mask: torch.Tensor,  # (G, B)
-    origin: torch.Tensor,
+    origin: torch.Tensor,         # (2,), or (G, 1, 2): one window per grid
     extent: int,
     resolution: float,
 ) -> torch.Tensor:
@@ -104,7 +106,7 @@ def rasterize_scans(
     ranges: torch.Tensor,         # (G, B) beam ranges
     occupied_mask: torch.Tensor,  # (G, B) endpoint marks an OCCUPIED cell
     free_ray_mask: torch.Tensor,  # (G, B) beam marches FREE cells
-    origin: torch.Tensor,         # (2,) world position of cell [0, 0]
+    origin: torch.Tensor,         # (2,) world position of cell [0, 0], or (G, 1, 2) per grid
     extent: int,
     resolution: float,
     march_steps: int,

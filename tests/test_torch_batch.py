@@ -195,6 +195,40 @@ def test_solve_batched_matches_jax(cfgs, jax_lanes, method):
     np.testing.assert_allclose(tstats.final_error.numpy(), np.asarray(jstats.final_error), rtol=1e-4)
 
 
+def test_batched_increment_pass_matches_jax_and_engine(cfgs, jax_lanes):
+    """Every lane's pass boundary on JAX's stacked lanes (carried over with
+    state_from_numpy(lanes=...)): against JAX's batched_increment_pass,
+    poses within 2e-3 (tests/test_torch_engine.py's reoptimize bound) and
+    the same edges and pass bookkeeping; against the port's own engine
+    reoptimize of each lane, poses within 1e-6 (the target is equality)."""
+    jcfg, tcfg = cfgs
+    js, counts = jax_lanes
+    S = len(counts)
+    ts = tckpt.state_from_numpy(_flatten_state(js), tcfg, "cpu", lanes=S)
+    jout = jb.batched_increment_pass(jcfg, js, use_kernel=False)
+    tout = tb.batched_increment_pass(tcfg, ts)
+    for i, n in enumerate(counts):
+        jl, tl = jb.session_state(jout, i), tb.session_state(tout, i)
+        ne = int(jl.graph.num_edges)
+        assert int(tl.graph.num_edges) == ne and int(tl.graph.num_priors) == int(jl.graph.num_priors)
+        np.testing.assert_array_equal(tl.graph.edge_idx[:ne].numpy(), np.asarray(jl.graph.edge_idx[:ne]))
+        _assert_poses_close(tl.poses[:n].numpy(), np.asarray(jl.poses[:n]), POSE_TOL)
+        for k in ("pass_number", "first_scan_for_pass", "odom_initialized", "cumulative_dist"):
+            assert getattr(tl, k).item() == np.asarray(getattr(jl, k)).item(), k
+
+        eng = teng.DpgSlamEngine(tcfg, "cpu")
+        eng.state = tb.session_state(ts, i)
+        eng.increment_pass()
+        one = eng.state
+        diff = float((tl.poses[:n] - one.poses[:n]).abs().max())
+        print(f"lane {i}: {n} nodes, {ne} edges; poses against the engine's reoptimize differ by {diff}")
+        assert diff <= 1e-6
+        assert int(one.graph.num_edges) == ne
+        np.testing.assert_array_equal(tl.graph.edge_idx.numpy(), one.graph.edge_idx.numpy())
+        for k in ("pass_number", "first_scan_for_pass", "odom_initialized", "cumulative_dist"):
+            assert torch.equal(getattr(tl, k), getattr(one, k)), k
+
+
 def test_padding_lane_is_untouched_by_a_step(cfgs, seqs, port_lanes):
     """A step with one lane padding leaves that lane's node rows, graph
     and scalars as they were, and writes the other lane's keyframe."""

@@ -1,8 +1,9 @@
 """Kernels K1 (csrc/icp_kernel.cu) and K2 (csrc/spd_solve_kernel.cu) on a
 CUDA card against their plain PyTorch versions, and the port's keyframe
 path, dense_pallas solve, Schur reoptimize, session-batched mode and DPG
-step on the card against the CPU; neither the batched step loop nor the
-DPG step makes a host sync.
+step on the card against the CPU, and the lane-axis DPG step against the
+one-lane step; neither the batched step loop nor a DPG step makes a host
+sync.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. The file
 imports no JAX, so it runs on a machine without it:
@@ -515,6 +516,80 @@ def test_kernel_matches_plain_on_the_dpg_batch(cuda):
     torch.testing.assert_close(ker.covariance[both], ref.covariance[both], rtol=0.05, atol=1e-7)
     packed = icp_cuda.pack(*args[:4], normals, args[4], kw["gate_multiplier"])
     assert icp_cuda.launch_plan(5, 256, 2048, torch.cuda.get_device_properties(cuda).multi_processor_count) > 1
+    one = icp_cuda.run_kernel(*packed, pg, False, cluster=1)
+    for C in icp_cuda.CLUSTERS[1:]:
+        assert torch.equal(icp_cuda.run_kernel(*packed, pg, False, cluster=C), one), C
+
+
+def _session_lanes(device, S):
+    """S lanes of bench_assets/session, lane i cut to its first 220 - 7i
+    nodes (every chain still in pass 1)."""
+    flat = state_to_numpy(load_checkpoint(SESSION, "cpu").state)
+    flat = {k: np.stack([v] * S) for k, v in flat.items()}
+    flat["num_nodes"] = flat["num_nodes"] - 7 * np.arange(S, dtype=flat["num_nodes"].dtype)
+    return state_from_numpy(flat, load_checkpoint(SESSION, "cpu").config, device, lanes=S)
+
+
+@pytest.mark.cuda
+def test_lane_dpg_step_on_card_matches_one_lane(cuda):
+    """execute_dpg_lanes on 4 lanes of bench_assets/session on the card:
+    one K1 launch and no host read for all lanes, and each lane within
+    chip_smoke.py phase 10a's bounds of the one-lane step on that lane."""
+    cfg = load_checkpoint(SESSION, "cpu").config
+    lanes = _session_lanes(cuda, 4)
+    change_detection.execute_dpg_lanes(cfg, lanes)  # first use: constants
+    torch.cuda.synchronize()
+    before = icp_cuda.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, info = change_detection.execute_dpg_lanes(cfg, lanes)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert icp_cuda.LAUNCHES == before + 1
+    for i in range(4):
+        one, one_info = change_detection.execute_dpg(cfg, batch.session_state(lanes, i))
+        n = int(lanes.num_nodes[i])
+        assert (new.labels[i, :n] != one.labels[:n]).sum().item() <= 1e-3 * n * cfg.scan.num_beams
+        assert (new.sector_active[i, :n] != one.sector_active[:n]).sum().item() <= 1e-3 * n * cfg.dpg.num_sectors
+        assert torch.equal(new.node_active[i], one.node_active)
+        assert int(info.num_contributors[i]) == int(one_info.num_contributors) > 0
+        assert abs(float(info.coverage[i]) - float(one_info.coverage)) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_the_lane_dpg_batch(cuda):
+    """K1 on the lane-axis DPG step's batch of 8 lanes of bench_assets/session
+    (40 chain scans of 256 points against each lane's 2,048 submap points,
+    12 iterations) against the plain version; every cluster size the plan
+    admits gives the one-CTA rows to the bit."""
+    cfg = load_checkpoint(SESSION, "cpu").config
+    lanes = _session_lanes(cuda, 8)
+    calls = []
+    real = icp.icp_align
+
+    def capture(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    icp.icp_align = capture
+    try:
+        change_detection.execute_dpg_lanes(cfg, lanes)
+    finally:
+        icp.icp_align = real
+    (args, kw), = calls
+    assert args[0].shape == (40, 256, 2) and args[2].shape == (40, 2048, 2)
+    pg = args[5]
+    normals = icp.estimate_normals(args[2], args[3])
+    kw = dict(kw, tgt_normals=normals, min_correspondences=10, fitness_threshold=0.25,
+              min_overlap=pg.icp_min_overlap, sensor_noise_std=pg.icp_sensor_noise_std)
+    ker = icp_cuda.icp_align_cuda(*args, **kw)
+    ref = icp.icp_align_plain(*args, **kw)
+    torch.testing.assert_close(ker.transform, ref.transform, rtol=0, atol=5e-4)
+    torch.testing.assert_close(ker.fitness, ref.fitness, rtol=0, atol=1e-4)
+    both = ker.converged == ref.converged
+    assert both.all() and ker.converged.any()
+    torch.testing.assert_close(ker.covariance[both], ref.covariance[both], rtol=0.05, atol=1e-7)
+    packed = icp_cuda.pack(*args[:4], normals, args[4], kw["gate_multiplier"])
     one = icp_cuda.run_kernel(*packed, pg, False, cluster=1)
     for C in icp_cuda.CLUSTERS[1:]:
         assert torch.equal(icp_cuda.run_kernel(*packed, pg, False, cluster=C), one), C

@@ -30,6 +30,7 @@ from dpg_slam_tpu.dpg import change_detection as jcd
 from dpg_slam_tpu.engine import DpgSlamEngine as JaxEngine
 from dpg_slam_tpu.io import dataset as jds
 from dpg_slam_tpu.utils.checkpoint import _flatten_state
+from dpg_slam_tpu_torch import batch as tb
 from dpg_slam_tpu_torch.config import DpgConfig as TorchConfig
 from dpg_slam_tpu_torch.dpg import change_detection as tcd
 from dpg_slam_tpu_torch.engine import DpgSlamEngine
@@ -166,6 +167,69 @@ def test_dpg_step_matches_jax(scene, local_registration, coverage_growth):
         assert getattr(tnew, name).dtype == getattr(tstate, name).dtype, name
         assert getattr(tnew, name).shape == getattr(tstate, name).shape, name
     assert tinfo.num_added.dtype == torch.int32 and tinfo.coverage.dtype == torch.float32
+
+
+# --- the lane form (the multipass batched mode's step) --------------------------
+
+def _lane_states(scene):
+    """Four of JAX's pass-1 pre-step states at different chain positions
+    and node counts, the _pick_step state first; the fourth is the lane
+    marked invalid."""
+    best = _pick_step(scene["steps"])
+    others = [b for b, _ in scene["steps"] if b is not best]
+    return [best, others[len(others) // 4], others[3 * len(others) // 4], others[len(others) // 2]]
+
+
+@pytest.mark.parametrize("coverage_growth", [False, True])
+def test_lane_axis_dpg_step_matches_jax(scene, coverage_growth):
+    """execute_dpg_lanes on four stacked lanes (batch._lanes_dpg, the
+    fourth lane invalid): each valid lane within the one-lane step's bounds
+    of JAX's execute_dpg on that lane, and equal to the port's one-lane
+    step; the invalid lane keeps its labels, sectors and node activity."""
+    jcfg = scene["cfg"]
+    jcfg = dataclasses.replace(jcfg, dpg=dataclasses.replace(
+        jcfg.dpg, local_registration=True, submap_coverage_growth=coverage_growth))
+    tcfg = _tcfg(jcfg)
+    jstates = _lane_states(scene)
+    flats = [_flatten_state(s) for s in jstates]
+    lanes = state_from_numpy({k: np.stack([f[k] for f in flats]) for k in flats[0]}, tcfg, "cpu", lanes=4)
+    fields = ("labels", "sector_active", "node_active")
+    before = {k: getattr(lanes, k).clone() for k in fields}
+    valid = torch.tensor([True, True, True, False])
+    adopted = tb._lanes_dpg(tcfg, lanes, valid)
+    new, info = tcd.execute_dpg_lanes(tcfg, lanes)
+    for k in fields:
+        assert torch.equal(getattr(lanes, k), before[k]), k  # the input is left as it was
+        assert torch.equal(getattr(adopted, k)[3], before[k][3]), k
+        assert torch.equal(getattr(adopted, k)[:3], getattr(new, k)[:3]), k
+    assert info.num_added.shape == (4,) and info.coverage.dtype == torch.float32
+
+    committed_all = 0
+    for i in range(3):
+        jnew, jinfo = jcd.execute_dpg(jcfg, jstates[i])
+        one, one_info = tcd.execute_dpg(tcfg, _to_port(jcfg, jstates[i]))
+        committed = int(jinfo.num_added) + int(jinfo.num_removed)
+        committed_all += committed
+        label_diff = _label_diff(new.labels[i].numpy(), np.asarray(jnew.labels))
+        sector_diff = int((new.sector_active[i].numpy() != np.asarray(jnew.sector_active)).sum())
+        one_diff = sum(int((getattr(new, k)[i] != getattr(one, k)).sum()) for k in fields)
+        print(f"lane {i} growth={coverage_growth}: nodes {int(jstates[i].num_nodes)}, committed {committed} "
+              f"(+{int(jinfo.num_added)} -{int(jinfo.num_removed)}), against JAX: label entries differ "
+              f"{label_diff}, sector entries differ {sector_diff}; against the one-lane step: {one_diff} entries; "
+              f"coverage {float(info.coverage[i])} one-lane {float(one_info.coverage)} JAX {float(jinfo.coverage)}")
+        bound = DIFF_FRAC * committed
+        assert label_diff <= bound and sector_diff <= bound, (label_diff, sector_diff, committed)
+        assert abs(int(info.num_added[i]) - int(jinfo.num_added)) <= bound
+        assert abs(int(info.num_removed[i]) - int(jinfo.num_removed)) <= bound
+        np.testing.assert_array_equal(new.node_active[i].numpy(), np.asarray(jnew.node_active))
+        assert int(info.num_contributors[i]) == int(jinfo.num_contributors) > 0
+        # Off the picked step, atan2's last bit can flip a chain point's
+        # polar test (1 of the 320 sampled points on lane 1: 0.0031).
+        assert abs(float(info.coverage[i]) - float(jinfo.coverage)) <= DIFF_FRAC
+        assert one_diff == 0
+        for k in one_info._fields:
+            assert getattr(info, k)[i] == getattr(one_info, k), k
+    assert committed_all > 0
 
 
 # --- the port's two-pass engine (tests/test_dpg.py's assertions) --------------

@@ -1,8 +1,8 @@
 """The port stands without JAX: no module of dpg_slam_tpu_torch (nor
 chip_smoke.py) imports jax or dpg_slam_tpu, the package runs keyframes, a
 second pass with DPG change detection and its map layers, the offline
-sequence mode and the session-batched mode in a process where jax cannot
-be imported, and chip_smoke.py refuses to run without a CUDA card."""
+sequence mode, the session-batched mode and the multipass batched mode in
+a process where jax cannot be imported, and chip_smoke.py refuses to run without a CUDA card."""
 
 import ast
 import os
@@ -80,10 +80,19 @@ kf = off.process_sequence(seq.odometry[:12], seq.scans[:12])
 states, counts = batch.process_sessions_batched(cfg, [(s.odometry[:12], s.scans[:12]) for s in seqs], device="cpu")
 assert counts[0] == int(kf.sum()) == off.num_nodes() == int(batch.session_state(states, 0).num_nodes) >= 3
 assert np.isfinite(states.poses.numpy()).all()
+
+# The multipass batched mode: two lanes, two passes of 8 scans each, DPG on pass 1.
+lane_passes = [[(s.odometry[:8], s.scans[:8]), (s.odometry[8:16], s.scans[8:16])] for s in seqs]
+multi, multi_counts = batch.process_sessions_multipass(cfg, lane_passes, device="cpu")
+assert [sum(c) for c in multi_counts] == multi.num_nodes.tolist() and min(min(c) for c in multi_counts) >= 1
+assert multi.pass_number.tolist() == [1, 1] and np.isfinite(multi.poses.numpy()).all()
+plain, plain_counts = batch.process_sessions_multipass(cfg, lane_passes, run_dpg=False, device="cpu")
+from dpg_slam_tpu_torch import scan
+assert plain_counts == multi_counts and not ((plain.labels == scan.ADDED) | (plain.labels == scan.REMOVED)).any()
 assert not any(m == "jax" or m.startswith(("jax.", "dpg_slam_tpu.")) or m == "dpg_slam_tpu"
                for m in sys.modules if sys.modules[m] is not None)
 print("three keyframes", int(eng.state.graph.num_edges), "dpg layers", len(layers["active_static"]),
-      "batched lanes", counts)
+      "batched lanes", counts, "multipass lanes", multi_counts)
 """
 
 
@@ -101,6 +110,7 @@ def test_port_runs_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert "three keyframes" in proc.stdout and "dpg layers" in proc.stdout and "batched lanes" in proc.stdout
+    assert "multipass lanes" in proc.stdout
 
 
 def _assert_refused(proc):

@@ -122,6 +122,23 @@ def test_rasterize_endpoints_matches_scans_occupied_layer():
     assert not (endp == 1).any()
 
 
+@pytest.mark.parametrize("seed", [3, 4])
+def test_rasterize_per_grid_origins(seed):
+    """(G, 1, 2) origins, one window per grid (the lane form's layout),
+    equal G one-grid calls at each grid's own (2,) origin to the bit."""
+    laser, pts, ranges, occ, free = _scan_case(seed)
+    origins = np.random.default_rng(seed).uniform(-4.0, -2.5, (laser.shape[0], 2)).astype(np.float32)
+    args = (_t(laser), _t(pts), _t(ranges), _t(occ, torch.bool), _t(free, torch.bool))
+    grids = traster.rasterize_scans(*args, _t(origins[:, None]), 64, 0.1, 40)
+    endp = traster.rasterize_endpoints(args[1], args[3], _t(origins[:, None]), 64, 0.1)
+    assert grids.shape == endp.shape == (laser.shape[0], 64, 64)
+    for g in range(laser.shape[0]):
+        one = [a[g:g + 1] for a in args]
+        assert torch.equal(grids[g], traster.rasterize_scans(*one, _t(origins[g]), 64, 0.1, 40)[0])
+        assert torch.equal(endp[g], traster.rasterize_endpoints(one[1], one[3], _t(origins[g]), 64, 0.1)[0])
+        assert (grids[g] == traster.OCCUPIED).any() and (grids[g] == traster.FREE).any()
+
+
 # --- change_detection helpers -------------------------------------------------
 
 def test_beam_select_and_dilate_match_jax():
@@ -231,8 +248,8 @@ def _contributors(jcfg, jstate, tstate, tcfg):
     def jax_store(idx, valid):
         jax.debug.callback(lambda i, v: box.update(jax=(np.asarray(i), np.asarray(v))), idx, valid)
 
-    def torch_store(idx, valid):
-        box["torch"] = (idx.numpy(), valid.numpy())
+    def torch_store(idx, valid):  # the port's selection is per lane: (1, M) here
+        box["torch"] = (idx[0].numpy(), valid[0].numpy())
 
     for mod, cfg, state, store in ((jcd, jcfg, jstate, jax_store), (tcd, tcfg, tstate, torch_store)):
         real, spy = spy_on(mod, store)

@@ -10,8 +10,10 @@ keyframe (bench_assets/keyframe continuation, solve_method "dense" and
 reoptimize (bench_assets/session increment_pass, "dense" and
 "dense_pallas"), the 4-shard Schur reoptimize through K2, the
 session-batched mode at chip_smoke.py phase 9's configuration (16
-simulated sessions of 3 office laps), one DPG step on bench_assets/session
-and phase 10d's process_sequence with DPG. Prints one JSON line per path:
+simulated sessions of 3 office laps), one DPG step on bench_assets/session,
+phase 10d's process_sequence with DPG, the multipass batched mode at
+chip_smoke.py phase 11's configuration of record (8 lanes x 2 passes) and
+one lane-axis DPG step on the 8 lanes at the end of that run. Prints one JSON line per path:
 unprofiled wall ms, device busy ms (sum of CUDA kernel and memcpy
 intervals), idle share of the unprofiled wall, kernel launches (and per
 keyframe on the keyframe paths), the top kernels by device time (name,
@@ -62,6 +64,28 @@ def run_dpg_step():
     return cs.dpg_step(cfg, state)
 
 
+@functools.cache
+def multipass_inputs():
+    cfg = cs.multipass_config()
+    return cfg, cs.multipass_lanes(cfg)[0]
+
+
+def run_multipass():
+    return cs.run_multipass(*multipass_inputs())
+
+
+@functools.cache
+def lane_dpg_state():
+    cfg, _ = multipass_inputs()
+    return cfg, run_multipass()[0]
+
+
+def run_lane_dpg_step():
+    out = cs.change_detection.execute_dpg_lanes(*lane_dpg_state())
+    torch.cuda.synchronize()
+    return out
+
+
 PATHS = {
     "keyframe_dense": lambda: cs.run_keyframes(cs.DEVICE),
     "keyframe_dense_pallas": lambda: cs.run_keyframes(cs.DEVICE, "dense_pallas"),
@@ -73,6 +97,8 @@ PATHS = {
     "schur_4_shards_k2": lambda: cs.session_schur(True),
     "dpg_step": run_dpg_step,
     "offline_dpg": lambda: cs.run_dpg_offline(*dpg_inputs(), True),
+    "multipass_record": run_multipass,
+    "dpg_step_8_lanes": run_lane_dpg_step,
 }
 
 # The port's hand-written kernels, by the names of their CUDA kernels.
@@ -95,7 +121,7 @@ def main() -> None:
     for name, run in PATHS.items():
         out = run()
         keyframes = {"keyframe": lambda: len(out[1]), "offline": lambda: int(out[1].sum()),
-                     "batched": lambda: sum(out[1])}
+                     "batched": lambda: sum(out[1]), "multipass": lambda: sum(map(sum, out[1]))}
         kf = next((f() for k, f in keyframes.items() if name.startswith(k)), None)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
