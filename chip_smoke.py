@@ -79,8 +79,26 @@ committed fixtures (1024 beams, 256 ICP points, K = 8, 30 ICP iterations,
                  against plain; 11e batched_increment_pass against each
                  lane's engine reoptimize: ICP rows and rebuilt graphs to
                  the bit, poses within the bound
+ 12 server       BatchedSlamServer at the batched configuration of record
+                 (phase 9's 16 sessions, default bucket 256 and "lanes_cg",
+                 a solve every executed step), T = min(300, shortest
+                 session) ticks after a warm server of 40: 12a the policies
+                 (min_batch_fraction, max_wait_calls) = (1.0, 8), (0.5, 8),
+                 (0.25, 2) with kf/s (host clock from the first observe to
+                 a sync after flush), steps, keyframes, wait p50 / p95, K1
+                 launches and host syncs in the tick loop (must be 0), the
+                 JAX package's TPU row beside each; 12b immediate mode
+                 against process_sessions_batched at stride 1 per lane; 12c
+                 lane ATE at (0.5, 8) (< 0.3 m); 12d K1 on a captured
+                 server step with padding lanes against plain
 
-Each path phase (3-11) runs with the kernels' launch counts set to 0 just
+Repeats: the reoptimize (phase 5), 2b's dense_pallas reoptimize capture,
+9b's batched lanes and process_sequence runs and 11e's
+batched_increment_pass and engine reoptimizes each run more than once and
+must give the same bits (the pose-graph sums are ordered segment sums);
+each prints a "repeat" line.
+
+Each path phase (3-12) runs with the kernels' launch counts set to 0 just
 before it and read just after. Each phase prints one JSON line; any failed
 check raises, so the exit code is non-zero. The last lines are the
 kernels' record, the card's nvidia-smi line and {"ok": true, "device":
@@ -170,6 +188,20 @@ BATCH_REPEATS = 3
 LANE_ATE_MAX = 0.25
 LANE_POSE_TOL = 2e-3
 SPREAD_RUNS = 3
+# Online server (phase 12) at the batched configuration of record: bench.py's
+# bench_server sweep (T = min(300, shortest session) ticks after a warm
+# server of 40; the default bucket, max_nodes = 256, and solve choice,
+# "lanes_cg"). Lane ATE at (0.5, 8) below tests/test_batch.py's server bar;
+# immediate mode against the offline stride-1 run within LANE_POSE_TOL.
+SERVER_TICKS, SERVER_WARM_TICKS = 300, 40
+SERVER_POLICIES = ((1.0, 8), (0.5, 8), (0.25, 2))
+SERVER_QUALITY_POLICY = (0.5, 8)
+SERVER_ATE_MAX = 0.3
+# The JAX package's server on a TPU at these policies (BENCH_r05.json,
+# server_sweep): history, not comparable with the card's numbers.
+SERVER_TPU = {(1.0, 8): dict(kf_per_s=319.2, device_steps=69, keyframes=1096, p50_wait_ticks=1.0, p95_wait_ticks=2.0),
+              (0.5, 8): dict(kf_per_s=341.9, device_steps=82, keyframes=977, p50_wait_ticks=1.0, p95_wait_ticks=4.0),
+              (0.25, 2): dict(kf_per_s=208.3, device_steps=162, keyframes=1136, p50_wait_ticks=1.0, p95_wait_ticks=2.0)}
 # DPG (phase 10). Card against CPU on one step: at most 0.1 % of the live
 # label entries and of the sector entries differ (atan2 and the local
 # registration's sums differ in the last bits), node_active and the
@@ -233,6 +265,22 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def check_repeats(name: str, runs) -> float:
+    """Repeats of one computation on the card, each a list of tensors:
+    every repeat must equal the first to the bit. Prints a "repeat" line;
+    returns the largest absolute difference."""
+    same, diff = True, 0.0
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other, strict=True):
+            same = same and same_bits(a, b)
+            if a.is_floating_point() and a.numel():
+                diff = max(diff, (a.double() - b.double()).abs().max().item())
+    emit("repeat", run=name, repeats=len(runs), max_abs_diff=diff, same_bits=same)
+    if not same:
+        raise AssertionError(f"{name}: repeated runs on the card differ (max {diff})")
+    return diff
 
 
 def counted(run):
@@ -569,6 +617,8 @@ def run_reoptimize(device, solve_method: str | None = None):
 def reoptimize_phase(n_live: int):
     (gpu, secs), got = counted(lambda: run_reoptimize(DEVICE))
     launches = got[K1]
+    (again, _), _ = counted(lambda: run_reoptimize(DEVICE))
+    check_repeats("reoptimize", [[e.state.poses, *e.state.graph] for e in (gpu, again)])
     cpu, cpu_secs = run_reoptimize("cpu")
     if launches < 1:
         raise AssertionError("the reoptimize did not launch K1")
@@ -619,9 +669,11 @@ def k2_inputs():
     """The inputs K2 gets on its paths: the dense_pallas keyframe solve
     (bucket 64), the dense_pallas reoptimize (bucket 256) and the four
     shards of one Schur iteration on bench_assets/session."""
+    reopt = [capture_spd_input(lambda: run_reoptimize(DEVICE, "dense_pallas")) for _ in range(2)]
+    check_repeats("reoptimize_dense capture", [list(x) for x in reopt])
     return {
         "keyframe_dense": capture_spd_input(lambda: run_keyframes(DEVICE, "dense_pallas")),
-        "reoptimize_dense": capture_spd_input(lambda: run_reoptimize(DEVICE, "dense_pallas")),
+        "reoptimize_dense": reopt[0],
         "schur_4_shards": capture_spd_input(lambda: session_schur(True)),
     }
 
@@ -927,11 +979,11 @@ def captured_step_loop(cfg, sessions, capture_step: int):
         calls[0] += 1
         return real_align(*args, **kwargs)
 
-    def solve(eq, g, damping):
+    def solve(eq, g, damping, plan=None):
         if "k2" not in box:
             S, N = eq.diag.shape[:2]
-            box["k2"] = (fg._dense_H(eq, g, damping).detach().clone(), eq.rhs.reshape(S, 3 * N, 1).clone())
-        return real_solve(eq, g, damping)
+            box["k2"] = (fg._dense_H(eq, g, damping, plan).detach().clone(), eq.rhs.reshape(S, 3 * N, 1).clone())
+        return real_solve(eq, g, damping, plan)
 
     icp.icp_align, fg._dense_solve_lanes = align, solve
     torch.cuda.synchronize()
@@ -1027,9 +1079,9 @@ def batched_phase(single_stream_kf_per_s: float):
         raise AssertionError(f"{syncs} host syncs inside the batched step loop (probe {probe})")
 
     # 9b: two one-lap lanes at solve_stride 1 against process_sequence on
-    # the card. Float atomics in index_add_ move repeated runs on the card;
-    # where the largest spread among three runs of each exceeds 2e-3, the
-    # bound is twice it.
+    # the card. Repeats of each must give the same bits; the pose bound is
+    # 2e-3, or twice the largest spread among three runs of each where that
+    # is larger (the bound of card runs with float atomics in the sums).
     pair, _ = batched_sessions(cfg, 2, 1)
     (runs, got) = counted(lambda: [run_batched(cfg, pair)[:2] for _ in range(SPREAD_RUNS)])
     engines = []
@@ -1040,6 +1092,8 @@ def batched_phase(single_stream_kf_per_s: float):
             eng.process_sequence(odom, scans)
             lane_engines.append(eng)
         engines.append(lane_engines)
+    check_repeats("9b batched lanes", [[st.poses, *st.graph] for st, _ in runs])
+    check_repeats("9b process_sequence", [[e.state.poses for e in lane_engines] for lane_engines in engines])
     lanes = [[batch_mod.session_state(st, i) for i in range(2)] for st, _ in runs]
     spread = 0.0
     for r in range(SPREAD_RUNS):
@@ -1059,7 +1113,7 @@ def batched_phase(single_stream_kf_per_s: float):
          bound=tol, k1_launches=got[K1])
     if max(diffs) > tol:
         raise AssertionError(f"batched lanes differ from process_sequence by {max(diffs)} > {tol}")
-    return out, k1_case("batched_step", k1_input, 10), batched_k2_case(H, B)
+    return out, k1_case("batched_step", k1_input, 10), batched_k2_case(H, B), (sessions, gts)
 
 
 # --- phase 10: DPG change detection ---------------------------------------------
@@ -1598,10 +1652,9 @@ def multipass_reoptimize_phase(cap, cfg):
     states against each lane's engine reoptimize; both timed. Per lane, the
     one-launch sweep's ICP rows must equal the engine's own sweep's rows to
     the bit (K1's rows do not depend on the batch), and so must the rebuilt
-    graphs. Float atomics in the solve's index_add_ move repeated runs on
-    the card, so as in phase 9b each side runs SPREAD_RUNS times and the
-    pose bound is POSE_TOL, or twice the largest spread between repeats
-    where that is larger."""
+    graphs. As in phase 9b each side runs SPREAD_RUNS times, the repeats
+    must give the same bits, and the pose bound is POSE_TOL, or twice the
+    largest spread between repeats where that is larger."""
     pass0 = cap["pass0_states"]
     S = pass0.poses.shape[0]
     nodes = pass0.num_nodes.tolist()
@@ -1624,6 +1677,8 @@ def multipass_reoptimize_phase(cap, cfg):
         engines.append([eng.state for eng in lane_engines])
         if r == 0:
             first_rows = b_rows, e_rows
+    check_repeats("11e batched_increment_pass", [[b.poses, *b.graph] for b in batched])
+    check_repeats("11e engine reoptimizes", [[st.poses for st in lane_states] for lane_states in engines])
     (sweep,), e_rows = first_rows
     B = sweep.transform.shape[0] // S
     rows_equal = [all(same_bits(x[i * B:i * B + y.shape[0]], y) for x, y in zip(sweep, e_rows[i]))
@@ -1663,6 +1718,151 @@ def multipass_all(single_stream_kf_per_s: float, batched_kf_per_s: float):
     return cases
 
 
+# --- phase 12: the online server -----------------------------------------------
+
+def server_streams(sessions):
+    """The first T = min(SERVER_TICKS, shortest session) ticks of every
+    session, time-major: odometry (T, S, 3), scans (T, S, B)."""
+    T = min(SERVER_TICKS, min(len(odom) for odom, _ in sessions))
+    return np.stack([odom[:T] for odom, _ in sessions], axis=1), np.stack([scans[:T] for _, scans in sessions], axis=1)
+
+
+def make_server(cfg, S: int, frac: float, wait: int):
+    return batch_mod.BatchedSlamServer(cfg, S, min_batch_fraction=frac, max_wait_calls=wait, device=DEVICE)
+
+
+def tick_loop(srv, odo, scn) -> list[list[int]]:
+    """observe() every tick, then flush(); returns each lane's keyframe
+    ticks."""
+    kf_ticks = [[] for _ in range(srv.S)]
+    for t in range(len(odo)):
+        for i in np.nonzero(srv.observe(odo[t], scn[t]))[0]:
+            kf_ticks[i].append(t)
+    srv.flush()
+    return kf_ticks
+
+
+def server_quality(srv, odo, gts) -> list[float]:
+    """Each lane's ATE: its keyframes matched to the tick with the nearest
+    odometry (tests/test_batch.py::test_server_bounded_delay_quality)."""
+    ates = []
+    for i in range(srv.S):
+        n = srv.num_nodes(i)
+        odom_xy = srv.states.odom_poses[i, :n, :2].cpu().numpy()
+        ticks = np.argmin(np.linalg.norm(odo[:, i, None, :2] - odom_xy[None], axis=-1), axis=0)
+        ates.append(float(ate_rmse(srv.trajectory(i), to_anchor_frame(gts[i][ticks]))))
+    return ates
+
+
+def server_sweep(cfg, odo, scn, gts) -> list[dict]:
+    """12a and 12c: one timed server per policy after a warm one."""
+    T, S = odo.shape[:2]
+    pairs = S * (1 + cfg.pose_graph.max_loop_closures_per_node)
+    tick_loop(make_server(cfg, S, *SERVER_QUALITY_POLICY), odo[:SERVER_WARM_TICKS], scn[:SERVER_WARM_TICKS])
+    rows = []
+    for frac, wait in SERVER_POLICIES:
+        srv = make_server(cfg, S, frac, wait)
+        torch.cuda.synchronize()
+        with KernelBatches() as kb:
+            t0 = time.perf_counter()
+            (_, syncs), got = counted(lambda: count_syncs(lambda: tick_loop(srv, odo, scn)))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        waits = np.concatenate(srv.wait_hist)
+        row = dict(min_batch_fraction=frac, max_wait_calls=wait, sessions=S, ticks=T, bucket=srv.bucket,
+                   method=srv.method, seconds=secs, kf_per_s=srv.keyframes_executed / secs,
+                   steps=srv.steps_executed, keyframes=srv.keyframes_executed,
+                   p50_wait_ticks=float(np.percentile(waits, 50)), p95_wait_ticks=float(np.percentile(waits, 95)),
+                   k1_launches=got[K1], k1_batch_sizes=sorted(set(kb.sizes)), tick_loop_host_syncs=syncs,
+                   tpu_history=SERVER_TPU[(frac, wait)])
+        if (frac, wait) == SERVER_QUALITY_POLICY:
+            ates = server_quality(srv, odo, gts)
+            row |= dict(mean_lane_ate_m=float(np.mean(ates)), max_lane_ate_m=max(ates), lane_ates_m=ates)
+            if max(ates) >= SERVER_ATE_MAX:
+                raise AssertionError(f"server lane ATE {max(ates)} m >= {SERVER_ATE_MAX}")
+        emit("server", **row)
+        if syncs != 0:
+            raise AssertionError(f"{syncs} host syncs in the server's tick loop at {(frac, wait)}")
+        if got[K1] != srv.steps_executed or set(kb.sizes) != {pairs}:
+            raise AssertionError(f"K1 launches {got[K1]} (batch sizes {sorted(set(kb.sizes))}) for "
+                                 f"{srv.steps_executed} steps")
+        rows.append(row)
+    return rows
+
+
+def server_vs_offline(cfg, odo, scn) -> dict:
+    """12b: the server in immediate mode against process_sessions_batched
+    at stride 1 with the same bucket and method, per lane."""
+    S = odo.shape[1]
+    srv = make_server(cfg, S, 1e-9, 8)
+    (kf_ticks, (off, counts)), got = counted(lambda: (tick_loop(srv, odo, scn), batch_mod.process_sessions_batched(
+        cfg, [(odo[:, i], scn[:, i]) for i in range(S)], solve_bucket=srv.bucket, solve_method=srv.method,
+        device=DEVICE)))
+    diffs, bit_equal = [], []
+    for i in range(S):
+        lane, n = batch_mod.session_state(off, i), counts[i]
+        sched = np.nonzero(batch_mod.keyframe_schedule(cfg, odo[:, i]))[0].tolist()
+        ne = int(lane.graph.num_edges)
+        same = (kf_ticks[i] == sched and srv.num_nodes(i) == n
+                and int(srv.states.graph.num_priors[i]) == int(lane.graph.num_priors)
+                and int(srv.states.graph.num_edges[i]) == ne
+                and same_bits(srv.states.odom_poses[i, :n], lane.odom_poses[:n])
+                and torch.equal(srv.states.graph.edge_idx[i, :ne], lane.graph.edge_idx[:ne]))
+        if not same:
+            raise AssertionError(f"server lane {i} differs from the offline run in its schedule, counts, "
+                                 "odometry or edges")
+        diffs.append(pose_diff(srv.states.poses[i, :n], lane.poses[:n]))
+        server_lane = batch_mod.session_state(srv.states, i)
+        bit_equal.append(all(same_bits(a, b) for a, b in zip([server_lane.poses, *server_lane.graph],
+                                                             [lane.poses, *lane.graph])))
+    out = dict(sessions=S, ticks=len(odo), keyframes=counts, steps=srv.steps_executed, max_pose_diff=max(diffs),
+               bound=LANE_POSE_TOL, lanes_bit_equal=sum(bit_equal), k1_launches=got[K1])
+    emit("server_vs_offline", **out)
+    if max(diffs) > LANE_POSE_TOL:
+        raise AssertionError(f"server lanes differ from the offline run by {max(diffs)} > {LANE_POSE_TOL}")
+    return out
+
+
+def capture_server_step(cfg, odo, scn):
+    """K1's input at the first step of a server at SERVER_QUALITY_POLICY
+    with padding lanes (lanes whose every source point is masked)."""
+    S = odo.shape[1]
+    box, real = {}, icp.icp_align
+
+    def align(*args, **kwargs):
+        if not bool(args[1].reshape(S, -1).any(1).all()):
+            box["k1"] = clone_input(args, kwargs)
+            raise _Captured
+        return real(*args, **kwargs)
+
+    icp.icp_align = align
+    try:
+        tick_loop(make_server(cfg, S, *SERVER_QUALITY_POLICY), odo, scn)
+    except _Captured:
+        pass
+    finally:
+        icp.icp_align = real
+    if "k1" not in box:
+        raise AssertionError("no server step with padding lanes")
+    return box["k1"]
+
+
+def server_phase(sessions, gts):
+    """Phase 12 (12a-d) on phase 9's sessions; returns K1's server case."""
+    cfg = batched_config()
+    odo, scn = server_streams(sessions)
+    marks = [time.perf_counter()]
+    server_sweep(cfg, odo, scn, gts)
+    marks.append(time.perf_counter())
+    server_vs_offline(cfg, odo, scn)
+    marks.append(time.perf_counter())
+    case = k1_case("server_step", capture_server_step(cfg, odo, scn), 10)
+    marks.append(time.perf_counter())
+    emit("server_seconds", **{part: b - a for part, a, b in zip(("12ac", "12b", "12d"), marks, marks[1:])},
+         total=marks[-1] - marks[0])
+    return case
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -1690,12 +1890,13 @@ def main() -> None:
     dense_pallas_phase(kf_dense, ro_dense, n_live)
     schur_phase(ro_dense, n_live)
     offline_phase(kf_dense)
-    batched, (batched_err, batched_k1), batched_k2 = batched_phase(len(kf_dense[1]) / kf_dense[2])
+    batched, (batched_err, batched_k1), batched_k2, streams = batched_phase(len(kf_dense[1]) / kf_dense[2])
     times["batched_step"] = batched_k1
     dpg_err, times["dpg_local_reg"] = dpg_phase()
     multi = multipass_all(len(kf_dense[1]) / kf_dense[2], batched["kf_per_s"])
     for name, (_, case) in multi.items():
         times[name] = case
+    server_err, times["server_step"] = server_phase(*streams)
     for name, launches in LAUNCHED.items():
         if launches == 0:
             raise AssertionError(f"the paths never launched {name}")
@@ -1709,7 +1910,7 @@ def main() -> None:
             "source": "dpg_slam_tpu_torch/csrc/icp_kernel.cu",
             "replaces": "dpg_slam_tpu/ops/icp_pallas.py:170",
             "launches": LAUNCHED[K1],
-            "max_abs_err": max(worst, batched_err, dpg_err, *(err for err, _ in multi.values())),
+            "max_abs_err": max(worst, batched_err, dpg_err, server_err, *(err for err, _ in multi.values())),
             "ms": ro["ms"],
             "plain_ms": ro["plain_ms"],
             "bound_ms": ro["bound_ms"],

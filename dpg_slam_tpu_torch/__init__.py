@@ -25,12 +25,13 @@ module layout so each module's counterpart is found by path:
                ICP pairs in one call (process_sessions_batched); the
                multipass mode over S lanes, with every lane's DPG step and
                pass-boundary reoptimize batched
-               (process_sessions_multipass, batched_increment_pass)
+               (process_sessions_multipass, batched_increment_pass); the
+               online server of S live streams (BatchedSlamServer)
   utils      — checkpoint loading (reads the JAX package's npz), metrics
   io         — synthetic worlds and sequences
 
 Rules: the package imports torch and numpy, never jax or dpg_slam_tpu.
-Entry points (DpgSlamEngine, process_sessions_batched,
+Entry points (DpgSlamEngine, process_sessions_batched, BatchedSlamServer,
 process_sessions_multipass, load_checkpoint, make_mesh) run on the card
 unless the caller names another device; below
 them every function works on the device of the tensors it is given.
@@ -54,6 +55,7 @@ from dpg_slam_tpu_torch.config import (  # noqa: E402
 )
 from dpg_slam_tpu_torch import geom, scan  # noqa: E402
 from dpg_slam_tpu_torch.batch import (  # noqa: E402
+    BatchedSlamServer,
     batched_increment_pass,
     process_sessions_batched,
     process_sessions_multipass,
@@ -70,6 +72,7 @@ __all__ = [
     "VisualizationParams",
     "geom",
     "scan",
+    "BatchedSlamServer",
     "batched_increment_pass",
     "process_sessions_batched",
     "process_sessions_multipass",

@@ -31,6 +31,12 @@ for every lane's local registration) after every keyframe step of pass
 >= 1, and between passes `batched_increment_pass`: every lane's
 reoptimize sweep in one K1 launch, then each lane's graph rebuilt and
 solved. The pass boundary reads the host, as the JAX package's does.
+
+The online mode (`BatchedSlamServer`) serves S live streams: the same
+keyframe gate runs on the host tick by tick, each lane's gated scan waits
+in a buffer, and a bounded-delay batcher runs one batched keyframe step
+(`_batched_keyframe_step`, the loop's stride-1 step) when enough lanes are
+pending. Its tick loop reads no device value.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from dpg_slam_tpu_torch.graph import factor_graph as fg
 from dpg_slam_tpu_torch.ops import icp
 
 __all__ = [
+    "BatchedSlamServer",
     "batched_increment_pass",
     "keyframe_schedule",
     "pack_sessions",
@@ -377,6 +384,33 @@ def _batched_solve(cfg: DpgConfig, states: SlamState, solve_method: str, nb: int
     return poses
 
 
+def _adopt_solve(cfg: DpgConfig, states: SlamState, live: torch.Tensor, solve_method: str, nb: int,
+                 gn_iterations: int | None = None, cg_iterations: int | None = None) -> SlamState:
+    """Every lane's solve on node slots [:nb] (_batched_solve), adopted
+    in place on the lanes where `live` (S,) is set."""
+    solved = _batched_solve(cfg, states, solve_method, nb, gn_iterations, cg_iterations)
+    states.poses[:, :nb] = torch.where(live[:, None, None], solved, states.poses[:, :nb])
+    return states
+
+
+def _batched_keyframe_step(cfg: DpgConfig, states: SlamState, odom: torch.Tensor, ranges: torch.Tensor,
+                           valid: torch.Tensor, solve_method: str, solve_bucket: int | None = None,
+                           gn_iterations: int | None = None, cg_iterations: int | None = None) -> SlamState:
+    """ONE batched keyframe step (the JAX package's
+    _batched_keyframe_step): the frontend of every valid lane
+    (_lanes_keyframe; odom (S, 3), ranges (S, B), valid (S,)), then every
+    lane's solve on node slots [:solve_bucket] (default: all), its poses
+    adopted where `valid`. The loop's stride-1 step and the server's step.
+
+    `states`' tensors are written in place, as _lanes_keyframe writes
+    them. With "lanes_chol" / "lanes_cg" the step reads no host value;
+    "cg" runs the engine's solve lane by lane, which reads the host every
+    LM iteration."""
+    nb = solve_bucket or states.poses.shape[1]
+    states = _lanes_keyframe(cfg, states, odom, ranges, valid)
+    return _adopt_solve(cfg, states, valid, solve_method, nb, gn_iterations, cg_iterations)
+
+
 def _lanes_dpg(cfg: DpgConfig, states: SlamState, valid: torch.Tensor) -> SlamState:
     """The DPG step on every lane (change_detection.execute_dpg_lanes),
     its labels, sector_active and node_active adopted where `valid` (the
@@ -412,16 +446,18 @@ def _process_sessions_batched(
     if Km % solve_stride:
         raise ValueError(f"{Km} keyframe steps do not divide by solve_stride {solve_stride}")
     nb = solve_bucket or states.poses.shape[1]
+    its = (solve_gn_iterations, solve_cg_iterations)
     for g0 in range(0, Km, solve_stride):
+        if solve_stride == 1:
+            states = _batched_keyframe_step(cfg, states, kf_odom[g0], kf_scans[g0], kf_valid[g0], solve_method, nb, *its)
+            if run_dpg:
+                states = _lanes_dpg(cfg, states, kf_valid[g0])
+            continue
         for k in range(g0, g0 + solve_stride):
             states = _lanes_keyframe(cfg, states, kf_odom[k], kf_scans[k], kf_valid[k])
-            if run_dpg and solve_stride > 1:
+            if run_dpg:
                 states = _lanes_dpg(cfg, states, kf_valid[k])
-        live = kf_valid[g0:g0 + solve_stride].any(dim=0)
-        solved = _batched_solve(cfg, states, solve_method, nb, solve_gn_iterations, solve_cg_iterations)
-        states.poses[:, :nb] = torch.where(live[:, None, None], solved, states.poses[:, :nb])
-        if run_dpg and solve_stride == 1:
-            states = _lanes_dpg(cfg, states, kf_valid[g0])
+        states = _adopt_solve(cfg, states, kf_valid[g0:g0 + solve_stride].any(dim=0), solve_method, nb, *its)
     return states
 
 
@@ -615,3 +651,177 @@ def process_sessions_multipass(
         if p < P - 1:
             states = batched_increment_pass(cfg, states, reopt_method)
     return states, counts
+
+
+# ---------------------------------------------------------------------------
+# Online serving
+# ---------------------------------------------------------------------------
+
+class BatchedSlamServer:
+    """Online multi-stream serving: S concurrent SLAM sessions on one card
+    (the JAX package's BatchedSlamServer).
+
+    The offline batched mode precomputes each stream's keyframe schedule;
+    a server cannot (scans arrive live). Here the keyframe gate runs on the
+    host per lane (keyframe_schedule's recurrence; it reads only odometry),
+    and each gated scan is buffered as its lane's pending keyframe. One
+    batched device step (_batched_keyframe_step) runs when enough lanes are
+    pending (``min_batch_fraction``) or a pending lane has waited
+    ``max_wait_calls`` observe() calls: a bounded-delay batcher, latency
+    bounded by max_wait, throughput from running each step with as many
+    live lanes as possible. A lane that gates again before its buffered
+    keyframe ran keeps the newest scan.
+
+    Lanes that are not pending ride along masked, so each lane executes
+    its own keyframe schedule whatever the policy. A lane's result does
+    not depend on which lanes share its steps (K1's rows do not depend on
+    the batch, the lanes solve keeps per-lane masks and factors one lane
+    at a time), so in immediate mode (min_batch_fraction near 0) every
+    lane equals process_sessions_batched at solve_stride 1 with the same
+    bucket and method.
+
+    The tick loop (observe, flush) reads no device value with the lanes
+    solve methods: each step's inputs are snapshots of the pending buffers
+    in fresh pinned host memory, uploaded without a sync (the next observe
+    mutates the buffers while the card may still read the copy). A timing
+    of the loop must therefore end in torch.cuda.synchronize().
+    num_nodes and trajectory read the card. Each step writes the node rows
+    and factor slots of ``states`` in place: a caller who holds an old
+    ``states`` sees it change.
+
+    solve_bucket: node slots the solve runs on (default: the node
+    capacity). solve_method: "lanes_chol" / "lanes_cg" or "cg" (the
+    engine's solve per lane, which reads the host); default
+    _solve_choice(config, bucket). The JAX package's vmapped "dense" and
+    "dense_cg" raise ValueError.
+
+    Usage:
+      srv = BatchedSlamServer(cfg, n_sessions=16)
+      for odom, scans in zip(odom_stream, scan_stream):  # (S, 3), (S, B)
+          srv.observe(odom, scans)
+      srv.flush()
+      traj = srv.trajectory(i)
+    """
+
+    def __init__(
+        self,
+        config: DpgConfig,
+        n_sessions: int,
+        min_batch_fraction: float = 0.5,
+        max_wait_calls: int = 8,
+        solve_bucket: int | None = None,
+        solve_method: str | None = None,
+        device="cuda",
+    ):
+        self.config = config
+        self.S = n_sessions
+        self.min_batch = max(1, int(np.ceil(min_batch_fraction * n_sessions)))
+        self.max_wait = max_wait_calls
+        self.device = torch.device(device)
+        self.states = _stack_states(config, n_sessions, self.device)
+        self.bucket = solve_bucket or config.capacity.max_nodes
+        self.method = solve_method or _solve_choice(config, self.bucket)
+        _check_method(self.method)
+        B = config.scan.num_beams
+        # Host gate state per lane (keyframe_schedule's recurrence).
+        self._initialized = np.zeros(n_sessions, bool)
+        self._first = np.ones(n_sessions, bool)
+        self._odom_at_last = np.zeros((n_sessions, 3))
+        self._prev_odom = np.zeros((n_sessions, 3))
+        self._cum = np.zeros(n_sessions)
+        # Pending keyframe buffers.
+        self._pend_odom = np.zeros((n_sessions, 3), np.float32)
+        self._pend_scan = np.zeros((n_sessions, B), np.float32)
+        self._pend = np.zeros(n_sessions, bool)
+        self._pend_age = np.zeros(n_sessions, np.int64)
+        # Gate distance at buffering time: the distance travelled between a
+        # keyframe's buffering tick and its (possibly delayed) execution
+        # counts toward the next keyframe's gate, as the offline schedule's
+        # immediate reset has it.
+        self._pend_cum = np.zeros(n_sessions)
+        # Keyframes each lane has executed (its node count, kept on the host).
+        self._nodes = np.zeros(n_sessions, np.int64)
+        self.steps_executed = 0
+        self.keyframes_executed = 0
+        # Per step, the ticks each executed keyframe spent buffered.
+        self.wait_hist: list = []
+
+    def _gate(self, odom: np.ndarray) -> np.ndarray:
+        """Vectorized host keyframe gate update for one (S, 3) odom tick."""
+        pg = self.config.pose_graph
+        init = self._initialized
+        moved = np.hypot(odom[:, 0] - self._prev_odom[:, 0], odom[:, 1] - self._prev_odom[:, 1])
+        self._cum = np.where(init, self._cum + moved, self._cum)
+        self._odom_at_last = np.where(init[:, None], self._odom_at_last, odom)
+        self._initialized = np.ones_like(init)
+        self._prev_odom = odom.copy()
+        ang = np.abs(np.angle(np.exp(1j * (odom[:, 2] - self._odom_at_last[:, 2]))))
+        return self._first | (self._cum > pg.min_dist_between_nodes) | (ang > pg.min_angle_between_nodes)
+
+    def _upload(self, buf: np.ndarray) -> torch.Tensor:
+        """A snapshot of a host buffer on the server's device, with no host
+        sync: a pinned copy sent asynchronously (the caching host allocator
+        keeps the pinned block until the copy has run)."""
+        t = torch.from_numpy(buf)
+        if self.device.type == "cpu":
+            return t.clone()
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _execute(self) -> None:
+        valid = self._pend.copy()
+        if not valid.any():
+            return
+        full = valid & (self._nodes >= self.config.capacity.max_nodes)
+        if full.any():
+            raise ValueError(
+                f"lanes {np.nonzero(full)[0].tolist()} are at the node capacity "
+                f"{self.config.capacity.max_nodes}; raise CapacityParams.max_nodes"
+            )
+        self.wait_hist.append(self._pend_age[valid].copy())
+        self.states = _batched_keyframe_step(
+            self.config, self.states, self._upload(self._pend_odom), self._upload(self._pend_scan),
+            self._upload(valid), self.method, self.bucket,
+        )
+        # Keyframe bookkeeping of the executed lanes. _cum rebases to the
+        # distance accumulated since the buffered keyframe's tick, so a
+        # delayed execution does not drop travel toward the next gate.
+        self._first[valid] = False
+        self._cum[valid] = np.maximum(self._cum[valid] - self._pend_cum[valid], 0.0)
+        self._pend_cum[valid] = 0.0
+        self._odom_at_last[valid] = self._pend_odom[valid]
+        self._pend[:] = False
+        self._pend_age[:] = 0
+        self._nodes += valid
+        self.steps_executed += 1
+        self.keyframes_executed += int(valid.sum())
+
+    def observe(self, odom_batch, scans_batch) -> np.ndarray:
+        """One tick of all S streams: (S, 3) absolute odometry and (S, B)
+        scans. Returns the (S,) bool mask of lanes whose scan was accepted
+        as a new keyframe (buffered; executed now or within max_wait
+        calls)."""
+        odom = np.asarray(odom_batch, np.float64).reshape(self.S, 3)
+        scans = np.asarray(scans_batch, np.float32)
+        gate = self._gate(odom)
+        newly = gate & ~self._pend
+        # A lane gating again before its buffered keyframe executed keeps
+        # the newest scan (the buffered one is superseded).
+        self._pend_odom[gate] = odom[gate].astype(np.float32)
+        self._pend_scan[gate] = scans[gate]
+        self._pend_cum[gate] = self._cum[gate]
+        self._pend |= gate
+        self._pend_age[self._pend] += 1
+        if int(self._pend.sum()) >= self.min_batch or (self._pend.any() and int(self._pend_age.max()) >= self.max_wait):
+            self._execute()
+        return newly
+
+    def flush(self) -> None:
+        """Execute any buffered keyframes now."""
+        self._execute()
+
+    def num_nodes(self, i: int) -> int:
+        return int(self.states.num_nodes[i])
+
+    def trajectory(self, i: int) -> np.ndarray:
+        """Lane i's (num_nodes, 3) poses, on the host."""
+        return self.states.poses[i, : self.num_nodes(i)].cpu().numpy()

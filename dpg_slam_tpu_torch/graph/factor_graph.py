@@ -3,16 +3,20 @@ dpg_slam_tpu/graph/factor_graph.py.
 
 A FactorGraph is a NamedTuple of fixed-capacity factor tensors plus live
 counts (0-dim int32 tensors); slots at or beyond a count are masked out.
-Normal equations are assembled in block form with ``index_add_`` (the JAX
-package's one-hot contractions stand in for scatters on the TPU; the
-semantics are the same). The LM solver is a Python loop that reads its
-accept/stop decisions on the host.
+Normal equations are assembled in block form with ordered segment sums
+(graph/segment.py: each row adds its contributions in one fixed order, so
+runs on the card repeat to the bit, as the JAX package's one-hot
+contractions do; on the CPU the sums equal ``index_add_``'s). The factor
+indices are fixed for a whole solve, so each solve sorts them once (a
+SegmentPlan) and every assembly, matvec and dense H of the solve reuses
+the sort. The LM solver is a Python loop that reads its accept/stop
+decisions on the host.
 
 ``method="dense_pallas"`` solves the dense system with ops/schur.spd_solve
 (kernel K2 on a CUDA tensor). ``solve_batched`` runs S graphs stacked on
-a leading lane axis (batch.py's solver): one flat ``index_add_`` over the
-S·N node slots per assembly, and accept/stop decisions kept as per-lane
-device masks, so it never reads the host.
+a leading lane axis (batch.py's solver): one flat segment sum over the
+S·N node slots per block kind and assembly, and accept/stop decisions kept
+as per-lane device masks, so it never reads the host.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from dpg_slam_tpu_torch import geom
+from dpg_slam_tpu_torch.graph.segment import SegmentPlan, segment_plan, segment_sum
 from dpg_slam_tpu_torch.ops import schur
 
 __all__ = [
@@ -296,11 +301,67 @@ class _NormalEq(NamedTuple):
     rhs: torch.Tensor   # (N, 3) gradient J^T r
 
 
+def _factor_rows(g: FactorGraph, N: int):
+    """Flat node slot of every prior and of both ends of every edge, masked
+    slots sent to node 0: (P,), (E,), (E,); for a graph stacked on a lane
+    axis (S·P,), (S·E,), (S·E,) with lane s at offset s·N."""
+    pmask, emask = g.prior_mask, g.edge_mask
+    rows = (
+        _masked_index(g.prior_idx, pmask),
+        _masked_index(g.edge_idx[..., 0], emask),
+        _masked_index(g.edge_idx[..., 1], emask),
+    )
+    if g.prior_idx.ndim == 2:
+        base = (torch.arange(g.prior_idx.shape[0], device=g.prior_idx.device) * N)[:, None]
+        rows = tuple(r + base for r in rows)
+    return tuple(r.reshape(-1) for r in rows)
+
+
+def _assemble_plan(g: FactorGraph, N: int) -> SegmentPlan:
+    """The segment plan of the diagonal and gradient sums: prior, then
+    `i`, then `j` contributions, over the (S·)N node slots; masked slots
+    (exact zeros) are dropped."""
+    S = g.prior_idx.shape[0] if g.prior_idx.ndim == 2 else 1
+    p_idx, i_idx, j_idx = _factor_rows(g, N)
+    pmask, emask = g.prior_mask.reshape(-1), g.edge_mask.reshape(-1)
+    keys = torch.cat([torch.where(pmask, p_idx, S * N), torch.where(emask, i_idx, S * N),
+                      torch.where(emask, j_idx, S * N)])
+    return segment_plan(keys, S * N)
+
+
+def _matvec_plan(g: FactorGraph, N: int) -> SegmentPlan:
+    """The segment plan of _matvec: each node's diagonal product, then the
+    `i` and `j` ends of the live edges."""
+    _, i_idx, j_idx = _factor_rows(g, N)
+    emask = g.edge_mask
+    return segment_plan(torch.cat([torch.arange(N, device=i_idx.device), torch.where(emask, i_idx, N),
+                                   torch.where(emask, j_idx, N)]), N)
+
+
+def _dense_plan(g: FactorGraph, N: int) -> SegmentPlan:
+    """The segment plan of _dense_H over the S·N·N flat blocks (lane s at
+    offset s·N·N): the diagonal blocks, then the (i, j) and the (j, i)
+    block of every live edge. The (i, j) keys repeat where two factors
+    join the same nodes (an odometry factor and a successive-scan
+    factor)."""
+    lanes = g.prior_idx.ndim == 2
+    S = g.prior_idx.shape[0] if lanes else 1
+    dev = g.prior_idx.device
+    emask = g.edge_mask.reshape(S, -1)
+    i_idx = g.edge_idx[..., 0].reshape(S, -1).long()
+    j_idx = g.edge_idx[..., 1].reshape(S, -1).long()
+    base = (torch.arange(S, device=dev) * (N * N))[:, None]
+    keys = (base + torch.arange(N, device=dev) * (N + 1), torch.where(emask, base + i_idx * N + j_idx, S * N * N),
+            torch.where(emask, base + j_idx * N + i_idx, S * N * N))
+    return segment_plan(torch.cat([k.reshape(-1) for k in keys]), S * N * N)
+
+
 def _assemble(
     poses: torch.Tensor, g: FactorGraph, node_mask: torch.Tensor,
-    robust_delta: float | None = None,
+    robust_delta: float | None = None, plan: SegmentPlan | None = None,
 ) -> tuple[_NormalEq, torch.Tensor]:
-    """Normal equations and the total (robust) error in one residual sweep."""
+    """Normal equations and the total (robust) error in one residual sweep
+    (plan: _assemble_plan(g, N), made here when not given)."""
     N = poses.shape[0]
     pr, pJ = _prior_residual_jac(poses, g)
     er, Ji, Jj = _between_residual_jac(poses, g)
@@ -319,18 +380,7 @@ def _assemble(
     Jj = Jj * em[:, None, None]
     er = er * em[:, None]
 
-    p_idx = _masked_index(g.prior_idx, pmask)
-    i_idx = _masked_index(g.edge_idx[:, 0], emask)
-    j_idx = _masked_index(g.edge_idx[:, 1], emask)
-    diag = torch.zeros((N, 3, 3), dtype=poses.dtype, device=poses.device)
-    diag.index_add_(0, p_idx, pJ.transpose(-1, -2) @ pJ)
-    diag.index_add_(0, i_idx, Ji.transpose(-1, -2) @ Ji)
-    diag.index_add_(0, j_idx, Jj.transpose(-1, -2) @ Jj)
-    off = Ji.transpose(-1, -2) @ Jj
-    rhs = torch.zeros((N, 3), dtype=poses.dtype, device=poses.device)
-    rhs.index_add_(0, p_idx, torch.einsum("pba,pb->pa", pJ, pr))
-    rhs.index_add_(0, i_idx, torch.einsum("eba,eb->ea", Ji, er))
-    rhs.index_add_(0, j_idx, torch.einsum("eba,eb->ea", Jj, er))
+    diag, off, rhs = _normal_blocks(pJ, pr, Ji, Jj, er, plan or _assemble_plan(g, N))
 
     # Inactive node slots: identity diagonal, zero gradient -> zero update.
     eye = torch.eye(3, dtype=poses.dtype, device=poses.device)
@@ -339,69 +389,77 @@ def _assemble(
     return _NormalEq(diag, off, rhs), err
 
 
-def _matvec(eq: _NormalEq, g: FactorGraph, v: torch.Tensor) -> torch.Tensor:
-    """H v from the block form — O(E), no dense H."""
+def _normal_blocks(pJ, pr, Ji, Jj, er, plan: SegmentPlan):
+    """The diagonal blocks, off-diagonal blocks and gradient from masked
+    (and IRLS-weighted) Jacobians and residuals: the prior, `i` and `j`
+    contributions in that order, one segment sum each for diag and rhs."""
+    diag = segment_sum(torch.cat([pJ.transpose(-1, -2) @ pJ, Ji.transpose(-1, -2) @ Ji,
+                                  Jj.transpose(-1, -2) @ Jj]), plan)
+    rhs = segment_sum(torch.cat([torch.einsum("pba,pb->pa", pJ, pr), torch.einsum("eba,eb->ea", Ji, er),
+                                 torch.einsum("eba,eb->ea", Jj, er)]), plan)
+    return diag, Ji.transpose(-1, -2) @ Jj, rhs
+
+
+def _matvec(eq: _NormalEq, g: FactorGraph, v: torch.Tensor, plan: SegmentPlan | None = None) -> torch.Tensor:
+    """H v from the block form — O(E), no dense H (plan: _matvec_plan)."""
+    N = v.shape[0]
     emask = g.edge_mask
-    i_idx = _masked_index(g.edge_idx[:, 0], emask)
-    j_idx = _masked_index(g.edge_idx[:, 1], emask)
+    _, i_idx, j_idx = _factor_rows(g, N)
     em = emask.to(v.dtype)[:, None]
-    out = torch.einsum("nab,nb->na", eq.diag, v)
-    out = out.index_add(0, i_idx, em * torch.einsum("eab,eb->ea", eq.off, v[j_idx]))
-    return out.index_add(0, j_idx, em * torch.einsum("eba,eb->ea", eq.off, v[i_idx]))
+    return segment_sum(torch.cat([
+        torch.einsum("nab,nb->na", eq.diag, v),
+        em * torch.einsum("eab,eb->ea", eq.off, v[j_idx]),
+        em * torch.einsum("eba,eb->ea", eq.off, v[i_idx]),
+    ]), plan or _matvec_plan(g, N))
 
 
-def _dense_H(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor) -> torch.Tensor:
-    """The damped (3N, 3N) normal matrix, blocks added at their flat
-    (row * N + col) block index with index_add_ (an accumulating
-    index_put_ sorts its indices and cost ~0.7 ms a call at 4096 edges on
-    an H100). With a leading lane axis (eq.diag (S, N, 3, 3), damping
-    (S,), a stacked graph) it gives (S, 3N, 3N) from the same three
-    index_adds over S·N·N blocks, lane s at offset s·N·N."""
+def _dense_H(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, plan: SegmentPlan | None = None) -> torch.Tensor:
+    """The damped (3N, 3N) normal matrix: every block summed at its flat
+    (row * N + col) block index by one ordered segment sum (plan:
+    _dense_plan; the diagonal keys are unique, the (i, j) keys repeat).
+    With a leading lane axis (eq.diag (S, N, 3, 3), damping (S,), a
+    stacked graph) it gives (S, 3N, 3N) from the same sum over S·N·N
+    blocks, lane s at offset s·N·N."""
     lanes = eq.diag.ndim == 4
     S = eq.diag.shape[0] if lanes else 1
     N = eq.diag.shape[-3]
-    dev = eq.diag.device
     dt = eq.diag.dtype
-    emask = g.edge_mask
-    i_idx = _masked_index(g.edge_idx[..., 0], emask).reshape(S, -1)
-    j_idx = _masked_index(g.edge_idx[..., 1], emask).reshape(S, -1)
-    offm = (emask.to(dt)[..., None, None] * eq.off).reshape(-1, 3, 3)
-    eye = torch.eye(3, dtype=dt, device=dev)
+    offm = (g.edge_mask.to(dt)[..., None, None] * eq.off).reshape(-1, 3, 3)
+    eye = torch.eye(3, dtype=dt, device=eq.diag.device)
     d = damping[:, None, None, None] if lanes else damping
-    base = (torch.arange(S, device=dev) * (N * N))[:, None]
-    H = torch.zeros((S * N * N, 3, 3), dtype=dt, device=dev)
-    H.index_add_(0, (base + torch.arange(N, device=dev) * (N + 1)).reshape(-1), (eq.diag + d * eye).reshape(-1, 3, 3))
-    H.index_add_(0, (base + i_idx * N + j_idx).reshape(-1), offm)
-    H.index_add_(0, (base + j_idx * N + i_idx).reshape(-1), offm.transpose(-1, -2))
+    H = segment_sum(torch.cat([(eq.diag + d * eye).reshape(-1, 3, 3), offm, offm.transpose(-1, -2)]),
+                    plan or _dense_plan(g, N))
     H = H.view(S, N, N, 3, 3).permute(0, 1, 3, 2, 4).reshape(S, 3 * N, 3 * N)
     return H if lanes else H[0]
 
 
-def _dense_solve(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor) -> torch.Tensor:
+def _dense_solve(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, plan: SegmentPlan | None = None) -> torch.Tensor:
     """Cholesky solve of the dense damped system. A failed factorization
     yields NaN (as XLA's cho_factor does), which the LM loop rejects."""
     N = eq.diag.shape[0]
-    L, info = torch.linalg.cholesky_ex(_dense_H(eq, g, damping))
+    L, info = torch.linalg.cholesky_ex(_dense_H(eq, g, damping, plan))
     delta = torch.cholesky_solve(eq.rhs.reshape(3 * N, 1), L)[:, 0]
     delta = torch.where(info == 0, delta, float("nan"))
     return delta.reshape(N, 3)
 
 
-def _dense_pallas_solve(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor) -> torch.Tensor:
+def _dense_pallas_solve(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor,
+                        plan: SegmentPlan | None = None) -> torch.Tensor:
     """_dense_solve through ops/schur.spd_solve (the panel-blocked SPD
     solve; kernel K2 on a CUDA tensor) with the gradient as the one
     right-hand side."""
     N = eq.diag.shape[0]
-    delta = schur.spd_solve(_dense_H(eq, g, damping), eq.rhs.reshape(3 * N, 1))[:, 0]
+    delta = schur.spd_solve(_dense_H(eq, g, damping, plan), eq.rhs.reshape(3 * N, 1))[:, 0]
     return delta.reshape(N, 3)
 
 
 def _dense_cg_solve(
     eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, iters: int, rel_tol: float = 1e-6,
+    plan: SegmentPlan | None = None,
 ) -> torch.Tensor:
     """Block-Jacobi preconditioned CG with a dense (3N, 3N) matvec and a
     residual-norm stop."""
-    Hf = _dense_H(eq, g, damping)
+    Hf = _dense_H(eq, g, damping, plan)
     eye = torch.eye(3, dtype=eq.diag.dtype, device=eq.diag.device)
     Minv = geom.inv_sym3(eq.diag + damping * eye)
 
@@ -431,9 +489,12 @@ def _dense_cg_solve(
     return x.reshape(-1, 3)
 
 
-def _cg_solve(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, iters: int) -> torch.Tensor:
+def _cg_solve(
+    eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, iters: int, plan: SegmentPlan | None = None,
+) -> torch.Tensor:
     """Block-Jacobi preconditioned CG on the block-sparse system, a fixed
-    number of iterations."""
+    number of iterations (plan: _matvec_plan)."""
+    plan = plan or _matvec_plan(g, eq.diag.shape[0])
     eye = torch.eye(3, dtype=eq.diag.dtype, device=eq.diag.device)
     diag_d = eq.diag + damping * eye
     eqd = _NormalEq(diag_d, eq.off, eq.rhs)
@@ -444,12 +505,12 @@ def _cg_solve(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, iters: int) 
 
     b = eq.rhs
     x = torch.zeros_like(b)
-    r = b - _matvec(eqd, g, x)
+    r = b - _matvec(eqd, g, x, plan)
     z = precond(r)
     p = z
     rz = torch.sum(r * z)
     for _ in range(iters):
-        Ap = _matvec(eqd, g, p)
+        Ap = _matvec(eqd, g, p, plan)
         denom = torch.sum(p * Ap)
         alpha = torch.where(denom > 1e-20, rz / denom, 0.0)
         x = x + alpha * p
@@ -492,7 +553,10 @@ def solve(
     """
     if method not in ("dense", "dense_pallas", "dense_cg", "cg"):
         raise ValueError(f"unknown solve method {method!r}")
-    eq, err0 = _assemble(poses, g, node_mask, robust_delta)
+    N = poses.shape[0]
+    aplan = _assemble_plan(g, N)
+    splan = _matvec_plan(g, N) if method == "cg" else _dense_plan(g, N)
+    eq, err0 = _assemble(poses, g, node_mask, robust_delta, aplan)
     gnorm = float(eq.rhs.abs().max())
     err = err0
     damping = torch.tensor(damping_init, dtype=poses.dtype, device=poses.device)
@@ -501,13 +565,13 @@ def solve(
     done = False
     while it < max_iterations and not done and gnorm > gradient_tol:
         if method == "dense":
-            delta = _dense_solve(eq, g, damping)
+            delta = _dense_solve(eq, g, damping, splan)
         elif method == "dense_pallas":
-            delta = _dense_pallas_solve(eq, g, damping)
+            delta = _dense_pallas_solve(eq, g, damping, splan)
         elif method == "dense_cg":
-            delta = _dense_cg_solve(eq, g, damping, cg_iterations)
+            delta = _dense_cg_solve(eq, g, damping, cg_iterations, plan=splan)
         else:
-            delta = _cg_solve(eq, g, damping, cg_iterations)
+            delta = _cg_solve(eq, g, damping, cg_iterations, splan)
         new_poses = poses - delta
         new_poses = torch.cat([new_poses[:, :2], geom.wrap_angle(new_poses[:, 2:3])], dim=-1)
         new_err = total_error(new_poses, g, robust_delta)
@@ -523,7 +587,7 @@ def solve(
             poses, err = new_poses, new_err
             # Re-linearize only when the loop continues from here.
             if not done and it + 1 < max_iterations:
-                eq, _ = _assemble(poses, g, node_mask, robust_delta)
+                eq, _ = _assemble(poses, g, node_mask, robust_delta, aplan)
                 gnorm = float(eq.rhs.abs().max())
         damping = torch.clamp(damping * (0.5 if accept else 4.0), 1e-9, 1e6)
         accepted += int(accept)
@@ -547,21 +611,18 @@ def _lane_error(pr: torch.Tensor, er: torch.Tensor, robust_delta: float | None) 
 
 def _assemble_lanes(
     poses: torch.Tensor, g: FactorGraph, node_mask: torch.Tensor,
-    robust_delta: float | None = None,
+    robust_delta: float | None = None, plan: SegmentPlan | None = None,
 ) -> tuple[_NormalEq, torch.Tensor]:
     """_assemble for S graphs stacked on a leading lane axis: poses
     (S, N, 3), node_mask (S, N). The factors of every lane go through one
-    residual sweep and one flat index_add_ per block kind over the S·N
-    node slots (lane s at offset s·N). Returns (eq with (S, N, 3, 3),
-    (S, E, 3, 3), (S, N, 3) blocks, error (S,))."""
+    residual sweep and one flat segment sum per block kind over the S·N
+    node slots (lane s at offset s·N; plan: _assemble_plan). Returns (eq
+    with (S, N, 3, 3), (S, E, 3, 3), (S, N, 3) blocks, error (S,))."""
     S, N = poses.shape[:2]
     P, E = g.prior_idx.shape[1], g.edge_idx.shape[1]
     dt, dev = poses.dtype, poses.device
     pmask, emask = g.prior_mask, g.edge_mask
-    base = (torch.arange(S, device=dev) * N)[:, None]
-    p_idx = (_masked_index(g.prior_idx, pmask) + base).reshape(-1)
-    i_idx = (_masked_index(g.edge_idx[..., 0], emask) + base).reshape(-1)
-    j_idx = (_masked_index(g.edge_idx[..., 1], emask) + base).reshape(-1)
+    p_idx, i_idx, j_idx = _factor_rows(g, N)
     flat = poses.reshape(S * N, 3)
     pr, pJ = _prior_rj(flat[p_idx], g.prior_val.reshape(-1, 3), g.prior_sqrt_info.reshape(-1, 3, 3))
     er, Ji, Jj = _between_rj(flat[i_idx], flat[j_idx], g.edge_meas.reshape(-1, 3), g.edge_sqrt_info.reshape(-1, 3, 3))
@@ -578,15 +639,7 @@ def _assemble_lanes(
     Jj = Jj * em[:, None, None]
     er = er * em[:, None]
 
-    diag = torch.zeros((S * N, 3, 3), dtype=dt, device=dev)
-    diag.index_add_(0, p_idx, pJ.transpose(-1, -2) @ pJ)
-    diag.index_add_(0, i_idx, Ji.transpose(-1, -2) @ Ji)
-    diag.index_add_(0, j_idx, Jj.transpose(-1, -2) @ Jj)
-    off = Ji.transpose(-1, -2) @ Jj
-    rhs = torch.zeros((S * N, 3), dtype=dt, device=dev)
-    rhs.index_add_(0, p_idx, torch.einsum("pba,pb->pa", pJ, pr))
-    rhs.index_add_(0, i_idx, torch.einsum("eba,eb->ea", Ji, er))
-    rhs.index_add_(0, j_idx, torch.einsum("eba,eb->ea", Jj, er))
+    diag, off, rhs = _normal_blocks(pJ, pr, Ji, Jj, er, plan or _assemble_plan(g, N))
 
     live = node_mask.reshape(-1)
     eye = torch.eye(3, dtype=dt, device=dev)
@@ -595,7 +648,8 @@ def _assemble_lanes(
     return _NormalEq(diag.view(S, N, 3, 3), off.view(S, E, 3, 3), rhs.view(S, N, 3)), err
 
 
-def _dense_solve_lanes(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor) -> torch.Tensor:
+def _dense_solve_lanes(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor,
+                       plan: SegmentPlan | None = None) -> torch.Tensor:
     """_dense_solve for every lane of the (S, 3N, 3N) damped systems; a
     lane whose factorization failed gets NaN, which its LM step rejects.
 
@@ -605,7 +659,7 @@ def _dense_solve_lanes(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor) -> 
     factor alone, and left lanes of 0.2-0.9 m ATE (chip_smoke.py phase 9,
     PERF.md)."""
     S, N = eq.diag.shape[:2]
-    H = _dense_H(eq, g, damping)
+    H = _dense_H(eq, g, damping, plan)
     b = eq.rhs.reshape(S, 3 * N, 1)
     deltas = []
     for s in range(S):
@@ -614,11 +668,12 @@ def _dense_solve_lanes(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor) -> 
     return torch.stack(deltas).reshape(S, N, 3)
 
 
-def _dense_cg_fixed(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, iters: int) -> torch.Tensor:
+def _dense_cg_fixed(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, iters: int,
+                    plan: SegmentPlan | None = None) -> torch.Tensor:
     """Block-Jacobi preconditioned CG on the dense (S, 3N, 3N) systems, a
     fixed number of iterations for every lane (no convergence test)."""
     S, N = eq.diag.shape[:2]
-    Hf = _dense_H(eq, g, damping)
+    Hf = _dense_H(eq, g, damping, plan)
     eye = torch.eye(3, dtype=eq.diag.dtype, device=eq.diag.device)
     Minv = geom.inv_sym3(eq.diag + damping[:, None, None, None] * eye)
 
@@ -679,8 +734,9 @@ def solve_batched(
     """
     if method not in ("chol", "cg_fixed"):
         raise ValueError(f"unknown batched solve method {method!r}")
-    eq, err = _assemble_lanes(poses, g, node_mask, robust_delta)
-    S = poses.shape[0]
+    S, N = poses.shape[:2]
+    aplan, dplan = _assemble_plan(g, N), _dense_plan(g, N)
+    eq, err = _assemble_lanes(poses, g, node_mask, robust_delta, aplan)
     dev = poses.device
     damping = torch.full((S,), damping_init, dtype=poses.dtype, device=dev)
     if gradient_tol > 0.0:
@@ -691,12 +747,12 @@ def solve_batched(
     err0 = err
     for it in range(max_iterations):
         if method == "chol":
-            delta = _dense_solve_lanes(eq, g, damping)
+            delta = _dense_solve_lanes(eq, g, damping, dplan)
         else:
-            delta = _dense_cg_fixed(eq, g, damping, cg_iterations)
+            delta = _dense_cg_fixed(eq, g, damping, cg_iterations, dplan)
         cand = poses - delta
         cand = torch.cat([cand[..., :2], geom.wrap_angle(cand[..., 2:3])], dim=-1)
-        eq_c, err_c = _assemble_lanes(cand, g, node_mask, robust_delta)
+        eq_c, err_c = _assemble_lanes(cand, g, node_mask, robust_delta, aplan)
         accept = (err_c < err) & ~done
         small = (err - err_c) / torch.clamp(err, min=1e-12) < rel_tol
         if terminate_on_reject:

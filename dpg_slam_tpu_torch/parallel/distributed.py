@@ -6,7 +6,8 @@ of dpg_slam_tpu/parallel/distributed.py.
 - ``distributed_solve``: LM with edge-sharded PCG; the edges are reshaped
   to (S, E / S), each psum of the JAX package is a sum over the shard
   dimension, and the replicated priors are folded into every shard scaled
-  by 1 / S.
+  by 1 / S. Per-node sums are ordered segment sums (graph/segment.py), so
+  runs on the card repeat to the bit.
 - ``distributed_reoptimize``: the pass-boundary reoptimize (compacted ICP
   sweep, graph rebuild) with the Schur solve (parallel/schur.py) or the
   edge-sharded CG.
@@ -25,6 +26,7 @@ import torch
 from dpg_slam_tpu_torch import geom
 from dpg_slam_tpu_torch.config import PoseGraphParams
 from dpg_slam_tpu_torch.graph import factor_graph as fg
+from dpg_slam_tpu_torch.graph.segment import segment_plan, segment_sum
 from dpg_slam_tpu_torch.ops import icp
 from dpg_slam_tpu_torch.parallel.mesh import Mesh
 from dpg_slam_tpu_torch.parallel.partition import spatial_blocks
@@ -47,9 +49,12 @@ def sharded_icp_align(
     return icp.icp_align(src, src_mask, tgt, tgt_mask, init_guess, params, **kwargs)
 
 
-def _local_normal_contrib(poses, g_loc: fg.FactorGraph, edge_mask_l, S: int, robust_delta=None):
-    """Per-shard between-factor normal equations from each shard's own
-    edges: diag (S, N, 3, 3), off (S, El, 3, 3), rhs (S, N, 3)."""
+def _local_normal_contrib(poses, g_loc: fg.FactorGraph, edge_mask_l, S: int, plan, pJ, pr, robust_delta=None):
+    """Per-shard normal equations from each shard's own edges and the
+    replicated priors' 1 / S shares (pJ, pr already masked): diag
+    (S, N, 3, 3), off (S, El, 3, 3), rhs (S, N, 3). plan sums the `i`
+    ends, the `j` ends and then the priors of every shard into its node
+    slots (shard s at offset s·N)."""
     N = poses.shape[0]
     El = edge_mask_l.shape[1]
     er, Ji, Jj = fg._between_residual_jac(poses, g_loc)
@@ -59,15 +64,12 @@ def _local_normal_contrib(poses, g_loc: fg.FactorGraph, edge_mask_l, S: int, rob
     Ji = Ji * em[:, None, None]
     Jj = Jj * em[:, None, None]
     er = er * em[:, None]
-    base = (torch.arange(S, device=poses.device) * N).repeat_interleave(El)
-    i_idx = base + g_loc.edge_idx[:, 0].long()
-    j_idx = base + g_loc.edge_idx[:, 1].long()
-    diag = torch.zeros((S * N, 3, 3), dtype=poses.dtype, device=poses.device)
-    diag.index_add_(0, i_idx, Ji.transpose(-1, -2) @ Ji)
-    diag.index_add_(0, j_idx, Jj.transpose(-1, -2) @ Jj)
-    rhs = torch.zeros((S * N, 3), dtype=poses.dtype, device=poses.device)
-    rhs.index_add_(0, i_idx, torch.einsum("eba,eb->ea", Ji, er))
-    rhs.index_add_(0, j_idx, torch.einsum("eba,eb->ea", Jj, er))
+    inv_n = 1.0 / S
+    prior_h = (inv_n * (pJ.transpose(-1, -2) @ pJ))[None].expand(S, -1, -1, -1).reshape(-1, 3, 3)
+    prior_g = (inv_n * torch.einsum("pba,pb->pa", pJ, pr))[None].expand(S, -1, -1).reshape(-1, 3)
+    diag = segment_sum(torch.cat([Ji.transpose(-1, -2) @ Ji, Jj.transpose(-1, -2) @ Jj, prior_h]), plan)
+    rhs = segment_sum(torch.cat([torch.einsum("eba,eb->ea", Ji, er), torch.einsum("eba,eb->ea", Jj, er), prior_g]),
+                      plan)
     off = (Ji.transpose(-1, -2) @ Jj).view(S, El, 3, 3)
     return diag.view(S, N, 3, 3), off, rhs.view(S, N, 3)
 
@@ -114,7 +116,13 @@ def distributed_solve(
     j_loc = base + g.edge_idx[:, 1].long()
     i_glob = g.edge_idx[:, 0].long()
     j_glob = g.edge_idx[:, 1].long()
-    p_idx = g.prior_idx.long()
+    p_loc = ((torch.arange(S, device=dev) * N)[:, None] + g.prior_idx.long()).reshape(-1)
+    # The index sets are fixed for the solve: sorted once here, masked
+    # slots dropped.
+    i_live, j_live = (torch.where(edge_mask, x, S * N) for x in (i_loc, j_loc))
+    p_live = torch.where(prior_mask.repeat(S), p_loc, S * N)
+    normal_plan = segment_plan(torch.cat([i_live, j_live, p_live]), S * N)
+    matvec_plan = segment_plan(torch.cat([i_live, j_live]), S * N)
     eye = torch.eye(3, dtype=dt, device=dev)
 
     def robust_error(p):
@@ -127,15 +135,9 @@ def distributed_solve(
         return 0.5 * torch.sum(pr * pr) + per_shard.sum()
 
     def one_gn_step(p, damping_c):
-        diag_l, off_l, rhs_l = _local_normal_contrib(p, g, edge_mask_l, S, robust_delta)
         pr, pJ = fg._prior_residual_jac(p, g)
-        pJ = pJ * pm[:, None, None]
-        pr = pr * pm[:, None]
-        inv_n = 1.0 / S
-        diag_l = diag_l.clone()
-        rhs_l = rhs_l.clone()
-        diag_l.index_add_(1, p_idx, (inv_n * (pJ.transpose(-1, -2) @ pJ))[None].expand(S, -1, -1, -1))
-        rhs_l.index_add_(1, p_idx, (inv_n * torch.einsum("pba,pb->pa", pJ, pr))[None].expand(S, -1, -1))
+        diag_l, off_l, rhs_l = _local_normal_contrib(
+            p, g, edge_mask_l, S, normal_plan, pJ * pm[:, None, None], pr * pm[:, None], robust_delta)
         diag = diag_l.sum(0)
         rhs = rhs_l.sum(0)
         diag = torch.where(node_mask[:, None, None], diag, eye)
@@ -145,9 +147,8 @@ def distributed_solve(
         off = off_l.reshape(E, 3, 3)
 
         def matvec(v):
-            loc = torch.zeros((S * N, 3), dtype=dt, device=dev)
-            loc.index_add_(0, i_loc, emf * torch.einsum("eab,eb->ea", off, v[j_glob]))
-            loc.index_add_(0, j_loc, emf * torch.einsum("eba,eb->ea", off, v[i_glob]))
+            loc = segment_sum(torch.cat([emf * torch.einsum("eab,eb->ea", off, v[j_glob]),
+                                         emf * torch.einsum("eba,eb->ea", off, v[i_glob])]), matvec_plan)
             return torch.einsum("nab,nb->na", diag, v) + loc.view(S, N, 3).sum(0)
 
         def precond(v):

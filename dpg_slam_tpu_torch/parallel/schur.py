@@ -22,7 +22,9 @@ separator solve is torch.linalg in both.
 
 The JAX package's out-of-range ``mode="drop"`` scatters become writes to
 the padding row (interior slot C, separator slot sep_cap) of tensors that
-have one, or boolean masks where they were indexed with N.
+have one, or boolean masks where they were indexed with N. The block sums
+are ordered segment sums (graph/segment.py), so runs on the card repeat to
+the bit.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from dpg_slam_tpu_torch import geom
 from dpg_slam_tpu_torch.graph import factor_graph as fg
+from dpg_slam_tpu_torch.graph.segment import segment_plan, segment_sum
 from dpg_slam_tpu_torch.ops import schur as schur_ops
 from dpg_slam_tpu_torch.parallel.mesh import Mesh
 
@@ -170,6 +173,51 @@ def schur_solve(
     sv = sep_valid[:sep_cap].repeat_interleave(3)
 
     C1, K1 = C + 1, sep_cap + 1
+    s_col = shards[:, None]
+
+    rows = dict(ii=S * C1 * C1, ss=S * K1 * K1, is_=S * C1 * K1, bi=S * C1, bs=S * K1)
+
+    def routes(a_int, a_sep, b_int, b_sep, mine):
+        """Where one factor set's J_a^T J_b products (and gradients) go,
+        per target block tensor: the flat keys of each (S, F) product, in
+        the order block_values lists them. Endpoints a, b are interior
+        slots (C = none) or separator slots (sep_cap = none). A product of
+        a factor a shard does not own (mine (S, F) false: an exact zero)
+        is dropped."""
+        a_sep, b_sep = a_sep[None, :].expand_as(a_int), b_sep[None, :].expand_as(b_int)
+
+        def at(target, key):
+            return torch.where(mine, key, rows[target]).reshape(-1)
+
+        def blk(target, r, c, nrows, ncols):
+            return at(target, (s_col * nrows + r) * ncols + c)
+
+        return dict(
+            ii=[blk("ii", a_int, a_int, C1, C1), blk("ii", b_int, b_int, C1, C1), blk("ii", a_int, b_int, C1, C1),
+                blk("ii", b_int, a_int, C1, C1)],
+            ss=[blk("ss", a_sep, a_sep, K1, K1), blk("ss", b_sep, b_sep, K1, K1), blk("ss", a_sep, b_sep, K1, K1),
+                blk("ss", b_sep, a_sep, K1, K1)],
+            is_=[blk("is_", a_int, b_sep, C1, K1), blk("is_", b_int, a_sep, C1, K1)],
+            bi=[at("bi", s_col * C1 + a_int), at("bi", s_col * C1 + b_int)],
+            bs=[at("bs", s_col * K1 + a_sep), at("bs", s_col * K1 + b_sep)],
+        )
+
+    def block_values(Ja, Jb, r, w):
+        """The (S, F) products of one factor set (weights w (S, F)) per
+        target, in the order of routes."""
+        Hab = torch.einsum("fba,fbc->fac", Ja, Jb)[None] * w[..., None, None] ** 2
+        Haa = torch.einsum("fba,fbc->fac", Ja, Ja)[None] * w[..., None, None] ** 2
+        Hbb = torch.einsum("fba,fbc->fac", Jb, Jb)[None] * w[..., None, None] ** 2
+        ga = torch.einsum("fba,fb->fa", Ja, r)[None] * w[..., None] ** 2
+        gb = torch.einsum("fba,fb->fa", Jb, r)[None] * w[..., None] ** 2
+        HabT = Hab.transpose(-1, -2)
+        return dict(ii=[Haa, Hbb, Hab, HabT], ss=[Haa, Hbb, Hab, HabT], is_=[Hab, HabT], bi=[ga, gb], bs=[ga, gb])
+
+    # Between factors, then priors (one endpoint: the other goes to the
+    # padding slots). The keys are fixed for the solve: one plan per target.
+    edge_keys = routes(li, si_, lj, sj_, mine_e)
+    prior_keys = routes(lp, sp, torch.full_like(lp, C), torch.full_like(sp, sep_cap), mine_p)
+    plans = {t: segment_plan(torch.cat(edge_keys[t] + prior_keys[t]), n) for t, n in rows.items()}
 
     def robust_error(p):
         er, _, _ = fg._between_residual_jac(p, g_all)
@@ -190,45 +238,12 @@ def schur_solve(
             em = em * torch.sqrt(fg._huber_weight(er, robust_delta))[None, :]
         pm = mine_p.to(dt)
 
-        A_ii = torch.zeros((S * C1 * C1, 3, 3), dtype=dt, device=dev)
-        A_is = torch.zeros((S * C1 * K1, 3, 3), dtype=dt, device=dev)
-        A_ss = torch.zeros((S * K1 * K1, 3, 3), dtype=dt, device=dev)
-        b_i = torch.zeros((S * C1, 3), dtype=dt, device=dev)
-        b_s = torch.zeros((S * K1, 3), dtype=dt, device=dev)
-        s_col = shards[:, None]
-
-        def add_blocks(Ja, Jb, r, w, a_int, a_sep, b_int, b_sep):
-            """Accumulate one factor set's J_a^T J_b products (weights w,
-            (S, F)) at its endpoints a, b, each interior or separator."""
-            Hab = torch.einsum("fba,fbc->fac", Ja, Jb)[None] * w[..., None, None] ** 2
-            Haa = torch.einsum("fba,fbc->fac", Ja, Ja)[None] * w[..., None, None] ** 2
-            Hbb = torch.einsum("fba,fbc->fac", Jb, Jb)[None] * w[..., None, None] ** 2
-            ga = torch.einsum("fba,fb->fa", Ja, r)[None] * w[..., None] ** 2
-            gb = torch.einsum("fba,fb->fa", Jb, r)[None] * w[..., None] ** 2
-            a_sep, b_sep = a_sep[None, :].expand_as(a_int), b_sep[None, :].expand_as(b_int)
-
-            def put(T, rows, cols, ncols, nrows, vals):
-                T.index_add_(0, ((s_col * nrows + rows) * ncols + cols).reshape(-1), vals.reshape(-1, 3, 3))
-
-            put(A_ii, a_int, a_int, C1, C1, Haa)
-            put(A_ss, a_sep, a_sep, K1, K1, Haa)
-            put(A_ii, b_int, b_int, C1, C1, Hbb)
-            put(A_ss, b_sep, b_sep, K1, K1, Hbb)
-            HabT = Hab.transpose(-1, -2)
-            put(A_ii, a_int, b_int, C1, C1, Hab)
-            put(A_ii, b_int, a_int, C1, C1, HabT)
-            put(A_is, a_int, b_sep, K1, C1, Hab)
-            put(A_is, b_int, a_sep, K1, C1, HabT)
-            put(A_ss, a_sep, b_sep, K1, K1, Hab)
-            put(A_ss, b_sep, a_sep, K1, K1, HabT)
-            for T, n_rows, slots, g in ((b_i, C1, a_int, ga), (b_s, K1, a_sep, ga),
-                                        (b_i, C1, b_int, gb), (b_s, K1, b_sep, gb)):
-                T.index_add_(0, (s_col * n_rows + slots).reshape(-1), g.reshape(-1, 3))
-
-        add_blocks(Ji, Jj, er, em, li, si_, lj, sj_)
-        # Priors touch one endpoint: the other goes to the padding slots.
-        add_blocks(pJ, torch.zeros_like(pJ), pr, pm, lp, sp,
-                   torch.full_like(lp, C), torch.full_like(sp, sep_cap))
+        edge_vals = block_values(Ji, Jj, er, em)
+        prior_vals = block_values(pJ, torch.zeros_like(pJ), pr, pm)
+        A_ii, A_ss, A_is, b_i, b_s = (
+            segment_sum(torch.cat([v.reshape((-1,) + v.shape[2:]) for v in edge_vals[t] + prior_vals[t]]), plans[t])
+            for t in ("ii", "ss", "is_", "bi", "bs")
+        )
 
         Hii = _blocks(A_ii.view(S, C1, C1, 3, 3), C, C)
         His = _blocks(A_is.view(S, C1, K1, 3, 3), C, sep_cap)

@@ -2,8 +2,11 @@
 CUDA card against their plain PyTorch versions, and the port's keyframe
 path, dense_pallas solve, Schur reoptimize, session-batched mode and DPG
 step on the card against the CPU, and the lane-axis DPG step against the
-one-lane step; neither the batched step loop nor a DPG step makes a host
-sync.
+one-lane step; neither the batched step loop, a DPG step nor the online
+server's tick loop makes a host sync. The ordered segment sum gives the
+CPU's bits on the card; repeats of the reoptimize and of solve_batched, and
+the server in immediate mode against the offline stride-1 run, are equal
+to the bit.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. The file
 imports no JAX, so it runs on a machine without it:
@@ -593,3 +596,111 @@ def test_kernel_matches_plain_on_the_lane_dpg_batch(cuda):
     one = icp_cuda.run_kernel(*packed, pg, False, cluster=1)
     for C in icp_cuda.CLUSTERS[1:]:
         assert torch.equal(icp_cuda.run_kernel(*packed, pg, False, cluster=C), one), C
+
+
+# --- reproducible sums and the online server on the card ----------------------
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_segment_sum_on_card_equals_cpu(cuda):
+    """The ordered segment sum gives the CPU's bits on the card (each row
+    one sequential sum in the same order), with no host sync, in both plan
+    forms (a segment per row; a segment per value where rows outnumber
+    values)."""
+    from dpg_slam_tpu_torch.graph.segment import segment_plan, segment_sum
+
+    rng = np.random.default_rng(8)
+    for tail, n in (((3, 3), 256), ((3,), 256), ((3, 3), 100_000)):
+        vals = torch.from_numpy((rng.normal(size=(4096,) + tail) * 10.0 ** rng.uniform(-4, 4, (4096,) + tail))
+                                .astype(np.float32))
+        idx = torch.from_numpy(rng.integers(0, n * 200 // 256, 4096))
+        want = segment_sum(vals, segment_plan(idx, n))
+        v, i = vals.to(cuda), idx.to(cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = segment_sum(v, segment_plan(i, n))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert _same_bits(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_reoptimize_repeats_to_the_bit_on_card(cuda):
+    """Two engine reoptimizes of bench_assets/session give the same bits."""
+    runs = []
+    for _ in range(2):
+        eng = load_checkpoint(SESSION, cuda)
+        eng.increment_pass()
+        runs.append([eng.state.poses, *eng.state.graph])
+    for a, b in zip(*runs):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["chol", "cg_fixed"])
+def test_solve_batched_repeats_to_the_bit_on_card(cuda, method):
+    """solve_batched twice on the lanes graph of a batched run, from
+    perturbed poses: the same bits."""
+    cfg, sessions = _batched_setup(4, 60)
+    states, counts = batch.process_sessions_batched(cfg, sessions, device=cuda)
+    rng = np.random.default_rng(9)
+    init = states.poses + torch.tensor(rng.normal(0, 0.05, states.poses.shape), dtype=torch.float32, device=cuda)
+    mask = torch.arange(init.shape[1], device=cuda)[None] < states.num_nodes[:, None]
+    pg = cfg.pose_graph
+    kw = dict(max_iterations=5, damping_init=pg.gn_damping_init, method=method, cg_iterations=12,
+              robust_delta=pg.robust_delta, terminate_on_reject=True, rel_tol=1e-4)
+    (p1, s1), (p2, s2) = (fg.solve_batched(init, states.graph, mask, **kw) for _ in range(2))
+    assert _same_bits(p1, p2) and torch.equal(s1.iterations, s2.iterations)
+    assert (s1.iterations > 0).all()
+
+
+def _server_ticks(sessions, T):
+    return (np.stack([o[:T] for o, _ in sessions], axis=1), np.stack([s[:T] for _, s in sessions], axis=1))
+
+
+@pytest.mark.cuda
+def test_server_tick_loop_makes_no_host_sync(cuda):
+    """observe x T and flush with sync debug mode set to "error" (after a
+    warm server): the pending buffers go up without a host sync."""
+    cfg, sessions = _batched_setup(4, 60)
+    odo, scn = _server_ticks(sessions, 60)
+    warm = batch.BatchedSlamServer(cfg, 4, device=cuda)
+    for t in range(20):
+        warm.observe(odo[t], scn[t])
+    warm.flush()
+    srv = batch.BatchedSlamServer(cfg, 4, device=cuda)
+    before = icp_cuda.LAUNCHES
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(len(odo)):
+            srv.observe(odo[t], scn[t])
+        srv.flush()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert icp_cuda.LAUNCHES - before == srv.steps_executed < srv.keyframes_executed
+    assert min(srv.num_nodes(i) for i in range(4)) >= 10
+
+
+@pytest.mark.cuda
+def test_server_immediate_matches_offline_on_card(cuda):
+    """The server in immediate mode against process_sessions_batched at
+    stride 1 (same bucket and method) on the card: per lane, every state
+    leaf equal to the bit."""
+    cfg, sessions = _batched_setup(3, 60)
+    odo, scn = _server_ticks(sessions, 60)
+    srv = batch.BatchedSlamServer(cfg, 3, min_batch_fraction=1e-9, device=cuda)
+    for t in range(len(odo)):
+        srv.observe(odo[t], scn[t])
+    srv.flush()
+    off, counts = batch.process_sessions_batched(cfg, sessions, solve_bucket=srv.bucket, solve_method=srv.method,
+                                                 device=cuda)
+    for i, n in enumerate(counts):
+        assert srv.num_nodes(i) == n
+        got, want = (state_to_numpy(batch.session_state(x, i)) for x in (srv.states, off))
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"lane {i}: {k}")

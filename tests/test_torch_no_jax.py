@@ -1,8 +1,8 @@
 """The port stands without JAX: no module of dpg_slam_tpu_torch (nor
 chip_smoke.py) imports jax or dpg_slam_tpu, the package runs keyframes, a
 second pass with DPG change detection and its map layers, the offline
-sequence mode, the session-batched mode and the multipass batched mode in
-a process where jax cannot be imported, and chip_smoke.py refuses to run without a CUDA card."""
+sequence mode, the session-batched mode, the online server and the
+multipass batched mode in a process where jax cannot be imported, and chip_smoke.py refuses to run without a CUDA card."""
 
 import ast
 import os
@@ -28,7 +28,7 @@ def _imported_roots(path):
 def test_no_source_imports_jax():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    assert {PKG / "dpg" / "change_detection.py", PKG / "ops" / "raster.py"} <= set(files)
+    assert {PKG / "dpg" / "change_detection.py", PKG / "ops" / "raster.py", PKG / "graph" / "segment.py"} <= set(files)
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "dpg_slam_tpu"}
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
@@ -81,6 +81,13 @@ states, counts = batch.process_sessions_batched(cfg, [(s.odometry[:12], s.scans[
 assert counts[0] == int(kf.sum()) == off.num_nodes() == int(batch.session_state(states, 0).num_nodes) >= 3
 assert np.isfinite(states.poses.numpy()).all()
 
+# The online server in immediate mode on the same 12 ticks.
+srv = batch.BatchedSlamServer(cfg, 2, min_batch_fraction=1e-9, device="cpu")
+for t in range(12):
+    srv.observe(np.stack([s.odometry[t] for s in seqs]), np.stack([s.scans[t] for s in seqs]))
+srv.flush()
+assert [srv.num_nodes(i) for i in range(2)] == counts and srv.keyframes_executed == sum(counts)
+
 # The multipass batched mode: two lanes, two passes of 8 scans each, DPG on pass 1.
 lane_passes = [[(s.odometry[:8], s.scans[:8]), (s.odometry[8:16], s.scans[8:16])] for s in seqs]
 multi, multi_counts = batch.process_sessions_multipass(cfg, lane_passes, device="cpu")
@@ -92,7 +99,7 @@ assert plain_counts == multi_counts and not ((plain.labels == scan.ADDED) | (pla
 assert not any(m == "jax" or m.startswith(("jax.", "dpg_slam_tpu.")) or m == "dpg_slam_tpu"
                for m in sys.modules if sys.modules[m] is not None)
 print("three keyframes", int(eng.state.graph.num_edges), "dpg layers", len(layers["active_static"]),
-      "batched lanes", counts, "multipass lanes", multi_counts)
+      "batched lanes", counts, "server lanes", [srv.num_nodes(i) for i in range(2)], "multipass lanes", multi_counts)
 """
 
 
@@ -110,6 +117,7 @@ def test_port_runs_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert "three keyframes" in proc.stdout and "dpg layers" in proc.stdout and "batched lanes" in proc.stdout
+    assert "server lanes" in proc.stdout
     assert "multipass lanes" in proc.stdout
 
 

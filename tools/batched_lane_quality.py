@@ -41,22 +41,22 @@ from dpg_slam_tpu_torch.ops import _nvcc, icp_cuda, schur, schur_cuda  # noqa: E
 FAILED = [0]
 
 
-def batched_linalg(eq, g, damping):
+def batched_linalg(eq, g, damping, plan=None):
     S, N = eq.diag.shape[:2]
-    L, info = torch.linalg.cholesky_ex(fg._dense_H(eq, g, damping))
+    L, info = torch.linalg.cholesky_ex(fg._dense_H(eq, g, damping, plan))
     FAILED[0] += int((info != 0).sum())  # a host read: this variant is a diagnostic
     x = torch.cholesky_solve(eq.rhs.reshape(S, 3 * N, 1), L)
     return torch.where((info == 0)[:, None, None], x, float("nan")).reshape(S, N, 3)
 
 
-def k2(eq, g, damping):
+def k2(eq, g, damping, plan=None):
     S, N = eq.diag.shape[:2]
-    return schur.spd_solve(fg._dense_H(eq, g, damping), eq.rhs.reshape(S, 3 * N, 1)).reshape(S, N, 3)
+    return schur.spd_solve(fg._dense_H(eq, g, damping, plan), eq.rhs.reshape(S, 3 * N, 1)).reshape(S, N, 3)
 
 
-def lanes_f64(eq, g, damping):
+def lanes_f64(eq, g, damping, plan=None):
     S, N = eq.diag.shape[:2]
-    H = fg._dense_H(eq, g, damping).double()
+    H = fg._dense_H(eq, g, damping, plan).double()
     b = eq.rhs.reshape(S, 3 * N, 1).double()
     out = []
     for s in range(S):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the card's time goes on the PyTorch port's paths (one NVIDIA GPU).
 
-    python3 tools/profile_torch_paths.py
+    python3 tools/profile_torch_paths.py [path ...]
 
 Runs each path of chip_smoke.py once to warm up, once under torch.profiler
 (CPU + CUDA activity) and once unprofiled, on the committed fixtures:
@@ -13,10 +13,13 @@ session-batched mode at chip_smoke.py phase 9's configuration (16
 simulated sessions of 3 office laps), one DPG step on bench_assets/session,
 phase 10d's process_sequence with DPG, the multipass batched mode at
 chip_smoke.py phase 11's configuration of record (8 lanes x 2 passes) and
-one lane-axis DPG step on the 8 lanes at the end of that run. Prints one JSON line per path:
-unprofiled wall ms, device busy ms (sum of CUDA kernel and memcpy
-intervals), idle share of the unprofiled wall, kernel launches (and per
-keyframe on the keyframe paths), the top kernels by device time (name,
+one lane-axis DPG step on the 8 lanes at the end of that run, and the
+online server at chip_smoke.py phase 12's configuration (phase 9's
+sessions, 300 ticks, policy (0.5, 8)). Paths named on the command line
+run alone. Prints one JSON line per path: unprofiled wall ms, device busy
+ms (sum of CUDA kernel and memcpy intervals), idle share of the unprofiled
+wall, kernel launches (and per keyframe on the keyframe paths, per step on
+the batched and server paths), the top kernels by device time (name,
 ms, launches), the device ms and launches of K1 and K2, and K1's share of
 the busy time. The first line is the card's nvidia-smi name and power
 limit.
@@ -80,6 +83,17 @@ def lane_dpg_state():
     return cfg, run_multipass()[0]
 
 
+def run_server():
+    """The server over phase 12's ticks at its quality policy, ending in
+    a sync; returns the server."""
+    cfg, sessions = batched_inputs()
+    odo, scn = cs.server_streams(sessions)
+    srv = cs.make_server(cfg, odo.shape[1], *cs.SERVER_QUALITY_POLICY)
+    cs.tick_loop(srv, odo, scn)
+    torch.cuda.synchronize()
+    return srv
+
+
 def run_lane_dpg_step():
     out = cs.change_detection.execute_dpg_lanes(*lane_dpg_state())
     torch.cuda.synchronize()
@@ -99,6 +113,7 @@ PATHS = {
     "offline_dpg": lambda: cs.run_dpg_offline(*dpg_inputs(), True),
     "multipass_record": run_multipass,
     "dpg_step_8_lanes": run_lane_dpg_step,
+    "server_record": run_server,
 }
 
 # The port's hand-written kernels, by the names of their CUDA kernels.
@@ -118,11 +133,16 @@ def main() -> None:
         raise RuntimeError("profile_torch_paths.py needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    for name, run in PATHS.items():
+    for name in sys.argv[1:] or PATHS:
+        run = PATHS[name]
         out = run()
         keyframes = {"keyframe": lambda: len(out[1]), "offline": lambda: int(out[1].sum()),
-                     "batched": lambda: sum(out[1]), "multipass": lambda: sum(map(sum, out[1]))}
+                     "batched": lambda: sum(out[1]), "multipass": lambda: sum(map(sum, out[1])),
+                     "server": lambda: out.keyframes_executed}
         kf = next((f() for k, f in keyframes.items() if name.startswith(k)), None)
+        steps = {"batched": lambda: -(-max(out[1]) // cs.BATCH_STRIDE) * cs.BATCH_STRIDE,
+                 "server": lambda: out.steps_executed}
+        n_steps = next((f() for k, f in steps.items() if name.startswith(k)), None)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
@@ -143,7 +163,8 @@ def main() -> None:
         print(json.dumps({
             "path": name, "wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall), "device_ops": launches, "keyframes": kf,
-            "device_ops_per_keyframe": launches / kf if kf else None,
+            "device_ops_per_keyframe": launches / kf if kf else None, "steps": n_steps,
+            "device_ops_per_step": launches / n_steps if n_steps else None,
             "top": [[k[:60], v, count[k]] for k, v in top],
             "kernels_ms_launches": ours, "k1_share": ours["K1"][0] / busy if busy else None,
         }), flush=True)
