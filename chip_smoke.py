@@ -91,6 +91,23 @@ committed fixtures (1024 beams, 256 ICP points, K = 8, 30 ICP iterations,
                  against process_sessions_batched at stride 1 per lane; 12c
                  lane ATE at (0.5, 8) (< 0.3 m); 12d K1 on a captured
                  server step with padding lanes against plain
+ 13 runner       python -m dpg_slam_tpu_torch.run in-process (run.main) on
+                 the card, beside the JAX package's runner on the same
+                 arguments (CPU values): 13a --suite gdc and mit --offline
+                 at the runner's default config (keyframes per pass equal,
+                 every pass ATE < 0.05 m and within 5e-3 m, ADDED + REMOVED
+                 within 3 %, K1 at least once a keyframe); 13b the committed
+                 recorded fixture datasets/b21_analog online and --offline;
+                 13c two box_change passes at 1024 beams with --save-logs,
+                 replayed through --logs (trajectory and map layers equal
+                 to the bit; which .dsl reader ran); 13d its checkpoint
+                 loaded on the card (every state tensor equal to the bit);
+                 13e its --profile stages and the trace of its pass-0
+                 reoptimize (names K1's kernel); 13f K1 against plain on
+                 inputs captured from the gdc and b21 online runs: at each
+                 of K1's call sites (keyframe batch, DPG local
+                 registration, reoptimize sweep) the call with the most
+                 live pairs
 
 Repeats: the reoptimize (phase 5), 2b's dense_pallas reoptimize capture,
 9b's batched lanes and process_sequence runs and 11e's
@@ -98,7 +115,7 @@ batched_increment_pass and engine reoptimizes each run more than once and
 must give the same bits (the pose-graph sums are ordered segment sums);
 each prints a "repeat" line.
 
-Each path phase (3-12) runs with the kernels' launch counts set to 0 just
+Each path phase (3-13) runs with the kernels' launch counts set to 0 just
 before it and read just after. Each phase prints one JSON line; any failed
 check raises, so the exit code is non-zero. The last lines are the
 kernels' record, the card's nvidia-smi line and {"ok": true, "device":
@@ -107,13 +124,17 @@ kernels' record, the card's nvidia-smi line and {"ok": true, "device":
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
 import inspect
+import io
 import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -123,11 +144,13 @@ import torch
 import dpg_slam_tpu_torch  # noqa: F401  (sets the float32 matmul policy)
 from dpg_slam_tpu_torch import batch as batch_mod
 from dpg_slam_tpu_torch import engine as eng_mod
+from dpg_slam_tpu_torch import run as run_mod
 from dpg_slam_tpu_torch import scan
 from dpg_slam_tpu_torch.config import DpgConfig
 from dpg_slam_tpu_torch.dpg import change_detection
 from dpg_slam_tpu_torch.graph import factor_graph as fg
 from dpg_slam_tpu_torch.io import dataset
+from dpg_slam_tpu_torch.io import logs as log_io
 from dpg_slam_tpu_torch.ops import _nvcc, icp, icp_cuda, schur, schur_cuda
 from dpg_slam_tpu_torch.parallel import distributed_reoptimize, make_mesh
 from dpg_slam_tpu_torch.parallel.distributed import separator_cap
@@ -135,6 +158,7 @@ from dpg_slam_tpu_torch.parallel.partition import spatial_blocks
 from dpg_slam_tpu_torch.parallel.schur import schur_solve
 from dpg_slam_tpu_torch.utils.checkpoint import load_checkpoint, state_from_numpy, state_to_numpy
 from dpg_slam_tpu_torch.utils.metrics import ate_rmse, to_anchor_frame
+from dpg_slam_tpu_torch.utils.profiling import TRACE_FILE
 
 ROOT = pathlib.Path(__file__).resolve().parent
 ASSETS = ROOT / "bench_assets"
@@ -235,6 +259,30 @@ MULTI_REPEATS = 2
 MULTI_JAX_KEYFRAMES = 1296
 MULTI_DPG_REPEATS = 20
 MULTI_DPG_LARGE_LANES = 16
+# Experiment runner (phase 13). The JAX package's runner on the same runs
+# (jax 0.9.0 on a CPU, python -m dpg_slam_tpu.run, default config unless
+# the suite overrides it): keyframes and ATE per pass, nodes, edges and map
+# layers. Gates: keyframes per pass equal; every pass's ATE within 5e-3 m
+# of JAX's, and below 0.05 m on the gdc / mit suites (VERDICT.md
+# next-round item 2); ADDED + REMOVED points (dynamic_added +
+# dynamic_removed) within max(2, 3 %) of JAX's (ROADMAP Queue 3 item 4:
+# labels drift with the poses); K1 launched at least once a keyframe.
+RUNNER_JAX = {
+    "gdc": dict(keyframes=[41, 41, 35, 39], ate_m=[0.0455, 0.0225, 0.0150, 0.0113], nodes=156, edges=961,
+                map_layers=dict(active_static=143501, active_added=1383, dynamic_added=1383, dynamic_removed=381)),
+    "mit": dict(keyframes=[17, 16, 18, 16, 18, 15, 18, 16, 17, 16],
+                ate_m=[0.0454, 0.0094, 0.0070, 0.0107, 0.0149, 0.0155, 0.0159, 0.0138, 0.0122, 0.0113],
+                nodes=167, edges=1399,
+                map_layers=dict(active_static=145378, active_added=681, dynamic_added=1384, dynamic_removed=1472)),
+    "b21_offline": dict(keyframes=[20, 20], ate_m=[0.0202, 0.1697], nodes=40, edges=142,
+                        map_layers=dict(active_static=6120, active_added=176, dynamic_added=176, dynamic_removed=92)),
+    "b21_online": dict(keyframes=[20, 20], ate_m=[0.0203, 0.1689], nodes=40, edges=142,
+                       map_layers=dict(active_static=6120, active_added=176, dynamic_added=176, dynamic_removed=92)),
+}
+RUNNER_ATE_MAX = 0.05
+RUNNER_ATE_TOL = 5e-3
+RUNNER_CHANGED_ABS, RUNNER_CHANGED_REL = 2, 0.03
+B21_SUITE = ROOT / "datasets" / "b21_analog" / "suite.json"
 # H100 SXM published peaks (NVIDIA data sheet): FP32 outside the
 # tensor cores (an FMA counted as two flops) and HBM3 bandwidth.
 PEAK_FP32 = 67e12
@@ -245,7 +293,7 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32_INSTR = 128 * 132 * 1.98e9
 
 K1, K2 = "icp_point_to_line", "spd_solve"
-# Launches on the paths (phases 3-11), summed over the phases.
+# Launches on the paths (phases 3-13), summed over the phases.
 LAUNCHED = {K1: 0, K2: 0}
 
 
@@ -1863,6 +1911,170 @@ def server_phase(sessions, gts):
     return case
 
 
+# --- phase 13: the experiment runner -------------------------------------------
+
+def runner_main(out: pathlib.Path, flags: list[str]) -> dict:
+    """python -m dpg_slam_tpu_torch.run <flags> --out <out>, in-process on the
+    card (the default device), its printed summary kept off stdout; returns
+    the summary.json it wrote."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = run_mod.main([*flags, "--out", str(out)])
+    if rc != 0:
+        raise AssertionError(f"run.main({flags}) returned {rc}")
+    return json.loads((out / "summary.json").read_text())
+
+
+def changed_points(layers: dict) -> int:
+    return layers["dynamic_added"] + layers["dynamic_removed"]
+
+
+# K1's call sites on the runner's path: the caller of ops.icp.icp_align.
+RUNNER_K1_SITES = {"_keyframe_frontend": "keyframe", "execute_dpg_lanes": "dpg", "_reoptimize": "reoptimize"}
+
+
+def live_pairs(k1_input) -> int:
+    args = k1_input[0]
+    return int((args[1].any(1) & args[3].any(1)).sum())
+
+
+def capture_runner_k1(run):
+    """(run(), {site: (args, kwargs)}): run with ops.icp.icp_align wrapped
+    to keep a copy of every call's input at each of K1's call sites (no
+    host read inside the run); per site, the first call with the most live
+    pairs."""
+    calls, real = collections.defaultdict(list), icp.icp_align
+
+    def align(*args, **kwargs):
+        site = RUNNER_K1_SITES.get(sys._getframe(1).f_code.co_name)
+        if site is not None:
+            calls[site].append(clone_input(args, kwargs))
+        return real(*args, **kwargs)
+
+    icp.icp_align = align
+    try:
+        out = run()
+    finally:
+        icp.icp_align = real
+    missing = sorted(set(RUNNER_K1_SITES.values()) - calls.keys())
+    if missing:
+        raise AssertionError(f"the runner never reached K1's {missing} call sites")
+    return out, {site: max(inputs, key=live_pairs) for site, inputs in calls.items()}
+
+
+def runner_case(name: str, out: pathlib.Path, flags: list[str], ate_max: float | None,
+                capture: bool = False):
+    """13a / 13b: one runner call, its per-pass numbers beside the JAX
+    package's, and the gates. Returns K1's inputs at its call sites
+    (capture_runner_k1) with capture, else None."""
+    def run():
+        return runner_main(out, flags)
+
+    (summary, k1_inputs), got = counted(lambda: capture_runner_k1(run) if capture else (run(), None))
+    ref = RUNNER_JAX[name]
+    keys = ("keyframes", "ate_m", "rpe_m", "track_seconds", "track_fps", "reoptimize_seconds", "dpg_coverage")
+    passes = [{k: p.get(k) for k in keys} for p in summary["passes"]]
+    kfs, ates = [p["keyframes"] for p in passes], [p["ate_m"] for p in passes]
+    changed, ref_changed = changed_points(summary["map_layers"]), changed_points(ref["map_layers"])
+    changed_bound = max(RUNNER_CHANGED_ABS, RUNNER_CHANGED_REL * ref_changed)
+    out_fields = dict(run=name, flags=flags, passes=passes,
+                      kf_per_s=sum(kfs) / sum(p["track_seconds"] for p in passes),
+                      total_nodes=summary["total_nodes"], total_edges=summary["total_edges"],
+                      map_layers=summary["map_layers"], changed_points=changed, changed_bound=changed_bound,
+                      max_ate_diff_m=max(abs(a - b) for a, b in zip(ates, ref["ate_m"])) if len(ates) == len(
+                          ref["ate_m"]) else None,
+                      k1_launches=got[K1], device=summary["device"], jax_cpu_reference=ref)
+    emit("runner", **out_fields)
+    bars = {"keyframes per pass equal JAX's": kfs == ref["keyframes"],
+            f"every pass ATE within {RUNNER_ATE_TOL} m of JAX's": out_fields["max_ate_diff_m"] is not None
+            and out_fields["max_ate_diff_m"] <= RUNNER_ATE_TOL,
+            f"changed points within {changed_bound:.1f} of JAX's {ref_changed}": abs(changed - ref_changed)
+            <= changed_bound,
+            "K1 launched at least once a keyframe": got[K1] >= sum(kfs),
+            "ran on the card": summary["device"]["type"] == "cuda"}
+    if ate_max is not None:
+        bars[f"every pass ATE < {ate_max} m"] = all(a is not None and a < ate_max for a in ates)
+    failed = [k for k, ok in bars.items() if not ok]
+    if failed:
+        raise AssertionError(f"runner {name} misses {failed}: {out_fields}")
+    return k1_inputs
+
+
+def runner_roundtrip(tmp: pathlib.Path) -> dict:
+    """13c-e: a two-pass box_change run at 1024 beams with --save-logs,
+    --save-checkpoint and --profile; its .dsl logs replayed through --logs
+    (trajectory and map layers equal to the bit); its checkpoint loaded on
+    the card (every state tensor equal to the bit); its profile stages and
+    the trace of its pass-0 reoptimize (names K1)."""
+    first, replay_dir = tmp / "roundtrip", tmp / "replay"
+    flags = ["--passes", "2", "--scenario", "box_change", "--num-beams", "1024"]
+    (summary, eng), got = counted(lambda: run_mod.run(run_mod.parse_args(
+        [*flags, "--out", str(first), "--save-logs", "--save-checkpoint", "--profile"])))
+    logs = [str(first / f"pass{p}.dsl") for p in range(2)]
+    (replay, replay_eng), got_replay = counted(lambda: run_mod.run(run_mod.parse_args(
+        ["--num-beams", "1024", "--logs", *logs, "--out", str(replay_dir)])))
+    layers, replay_layers = eng.map_layers(), replay_eng.map_layers()
+    traj_equal = all(np.array_equal(a, b) for a, b in ((eng.trajectory(), replay_eng.trajectory()),
+                                                      (eng.odom_trajectory(), replay_eng.odom_trajectory())))
+    layers_equal = layers.keys() == replay_layers.keys() and all(
+        np.array_equal(layers[k], replay_layers[k]) for k in layers)
+    state, replay_state = state_to_numpy(eng.state), state_to_numpy(replay_eng.state)
+    replay_out = dict(part="13c", keyframes=[p["keyframes"] for p in summary["passes"]],
+                      replay_keyframes=[p["keyframes"] for p in replay["passes"]],
+                      ate_m=[p["ate_m"] for p in summary["passes"]], map_layers=summary["map_layers"],
+                      trajectory_equal=traj_equal, map_layers_equal=layers_equal,
+                      state_leaves_equal=sum(np.array_equal(state[k], replay_state[k]) for k in state),
+                      state_leaves=len(state), dsl_reader=log_io.dsl_reader(),
+                      k1_launches=got[K1], replay_k1_launches=got_replay[K1])
+    emit("runner_roundtrip", **replay_out)
+    if not (traj_equal and layers_equal and replay_out["keyframes"] == replay_out["replay_keyframes"]):
+        raise AssertionError(f"the --logs replay differs from the run that wrote the logs: {replay_out}")
+
+    restored = load_checkpoint(first / "checkpoint")
+    stored = state_to_numpy(restored.state)
+    differ = [k for k in state if stored[k].dtype != state[k].dtype or not np.array_equal(stored[k], state[k])]
+    ckpt_out = dict(part="13d", device=str(restored.state.poses.device), state_leaves=len(state),
+                    leaves_differing=differ, missing=sorted(state.keys() - stored.keys()))
+    emit("runner_checkpoint", **ckpt_out)
+    if differ or ckpt_out["missing"] or restored.state.poses.device.type != "cuda":
+        raise AssertionError(f"checkpoint differs from the runner's engine state: {ckpt_out}")
+
+    trace = json.loads((first / "trace" / TRACE_FILE).read_text())
+    kernels = collections.Counter(e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel")
+    k1_events = sum(n for name, n in kernels.items() if "icp_p2l_kernel" in name)
+    prof_out = dict(part="13e", stages=summary["profile"], trace_kernel_events=sum(kernels.values()),
+                    trace_kernel_names=len(kernels), k1_trace_events=k1_events,
+                    top_kernels=dict(kernels.most_common(5)))
+    emit("runner_profile", **prof_out)
+    if not {"observe_odometry", "observe_laser", "reoptimize"} <= set(summary["profile"]) or k1_events == 0:
+        raise AssertionError(f"--profile: stages or the trace's K1 kernel missing: {prof_out}")
+    return replay_out
+
+
+def runner_phase():
+    """Phase 13 (13a-f): the experiment runner through run.main on the
+    card, each part's seconds printed. Returns 13f's K1 cases, by name,
+    as (max_abs_err, case)."""
+    marks, k1_inputs = [time.perf_counter()], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for suite in ("gdc", "mit"):
+            k1_inputs[suite] = runner_case(suite, tmp / suite, ["--suite", suite, "--offline"], RUNNER_ATE_MAX,
+                                           capture=suite == "gdc")
+        marks.append(time.perf_counter())
+        for mode, extra in (("b21_online", []), ("b21_offline", ["--offline"])):
+            k1_inputs[mode] = runner_case(mode, tmp / mode, ["--suite", str(B21_SUITE), *extra], None,
+                                          capture=mode == "b21_online")
+        marks.append(time.perf_counter())
+        runner_roundtrip(tmp)
+        marks.append(time.perf_counter())
+    cases = {f"runner_{run}_{site}": k1_case(f"runner_{run}_{site}", k1_input, 10)
+             for run, sites in k1_inputs.items() if sites for site, k1_input in sites.items()}
+    marks.append(time.perf_counter())
+    emit("runner_seconds", **{part: b - a for part, a, b in zip(("13a", "13b", "13cde", "13f"), marks, marks[1:])},
+         total=marks[-1] - marks[0])
+    return cases
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -1897,6 +2109,9 @@ def main() -> None:
     for name, (_, case) in multi.items():
         times[name] = case
     server_err, times["server_step"] = server_phase(*streams)
+    runner = runner_phase()
+    for name, (_, case) in runner.items():
+        times[name] = case
     for name, launches in LAUNCHED.items():
         if launches == 0:
             raise AssertionError(f"the paths never launched {name}")
@@ -1910,7 +2125,8 @@ def main() -> None:
             "source": "dpg_slam_tpu_torch/csrc/icp_kernel.cu",
             "replaces": "dpg_slam_tpu/ops/icp_pallas.py:170",
             "launches": LAUNCHED[K1],
-            "max_abs_err": max(worst, batched_err, dpg_err, server_err, *(err for err, _ in multi.values())),
+            "max_abs_err": max(worst, batched_err, dpg_err, server_err,
+                               *(err for err, _ in (*multi.values(), *runner.values()))),
             "ms": ro["ms"],
             "plain_ms": ro["plain_ms"],
             "bound_ms": ro["bound_ms"],

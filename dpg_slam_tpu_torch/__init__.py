@@ -27,12 +27,17 @@ module layout so each module's counterpart is found by path:
                pass-boundary reoptimize batched
                (process_sessions_multipass, batched_increment_pass); the
                online server of S live streams (BatchedSlamServer)
-  utils      — checkpoint loading (reads the JAX package's npz), metrics
-  io         — synthetic worlds and sequences
+  utils      — checkpoints (save and load, in the JAX package's npz
+               format), metrics, profiling (torch.profiler, stage timer)
+  io         — synthetic worlds and sequences, .npz / .dsl logs, the gdc /
+               mit suites and manifests, ROS1 bags, stream conversion
+  viz        — map export and PNG rendering (matplotlib, imported on use)
+  baselines  — the serial CPU / native C++ reference-equivalent baseline
+  run        — the experiment runner (python -m dpg_slam_tpu_torch.run)
 
 Rules: the package imports torch and numpy, never jax or dpg_slam_tpu.
 Entry points (DpgSlamEngine, process_sessions_batched, BatchedSlamServer,
-process_sessions_multipass, load_checkpoint, make_mesh) run on the card
+process_sessions_multipass, load_checkpoint, make_mesh, run) run on the card
 unless the caller names another device; below
 them every function works on the device of the tensors it is given.
 """

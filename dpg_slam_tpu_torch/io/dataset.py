@@ -1,7 +1,8 @@
 """Synthetic 2D lidar worlds and sequence simulation (numpy) — a jax-free
-copy of the parts of dpg_slam_tpu/io/dataset.py the port's checks use:
-the office world and loop, the raycaster and the sequence simulator.
-Same inputs and seed give the same arrays as the JAX package's module.
+copy of dpg_slam_tpu/io/dataset.py: the office world and loop, the
+reading-room world and loop (the mit suite's), the raycaster and the
+sequence simulator. Same inputs and seed give the same arrays as the JAX
+package's module.
 """
 
 from __future__ import annotations
@@ -17,8 +18,10 @@ __all__ = [
     "Sequence",
     "SyntheticWorld",
     "make_office_world",
+    "make_reading_room_world",
     "office_loop_waypoints",
     "raycast",
+    "reading_room_waypoints",
     "simulate_sequence",
 ]
 
@@ -43,6 +46,9 @@ class SyntheticWorld:
         box = np.array([[x0, y0, x1, y0], [x1, y0, x1, y1], [x1, y1, x0, y1], [x0, y1, x0, y0]])
         return SyntheticWorld(np.vstack([self.segments, box]))
 
+    def remove_last_box(self) -> "SyntheticWorld":
+        return SyntheticWorld(self.segments[:-4])
+
 
 def make_office_world() -> SyntheticWorld:
     """A 16x12 'office': outer walls + interior partitions + furniture."""
@@ -66,6 +72,25 @@ def office_loop_waypoints() -> np.ndarray:
         ],
         dtype=np.float64,
     )
+
+
+def make_reading_room_world() -> SyntheticWorld:
+    """A 10x8 single room with a central table cluster, the MIT
+    reading-room analog: one room revisited over many short sessions."""
+    segs = [
+        [-5, -4, 5, -4], [5, -4, 5, 4], [5, 4, -5, 4], [-5, 4, -5, -4],
+        # Wall stubs whose tips stay >= 0.4 m clear of the waypoint path (a
+        # pose on structure makes the raycaster carve through it).
+        [-5, 0, -4.0, 0], [5, 0, 3.9, 0],
+    ]
+    w = SyntheticWorld(np.array(segs, dtype=np.float64))
+    w = w.add_box(0.0, 0.0, 1.6, 1.0)  # central table
+    return w.add_box(-3.8, 2.8, 0.8, 0.8)  # shelf
+
+
+def reading_room_waypoints() -> np.ndarray:
+    """A loop around the central table, clear of all structure."""
+    return np.array([[-3.5, -2.5], [3.5, -2.5], [3.5, 2.5], [-2.5, 2.5], [-3.5, -2.5]])
 
 
 def raycast(world: SyntheticWorld, pose: np.ndarray, params: ScanParams) -> np.ndarray:

@@ -1,1 +1,2 @@
-"""Checkpoint loading and trajectory metrics."""
+"""Checkpoints (save and load, in the JAX package's format), trajectory
+metrics and profiling (torch.profiler traces, a stage timer)."""

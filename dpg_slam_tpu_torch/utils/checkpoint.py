@@ -1,9 +1,11 @@
 """Engine state from and to flat numpy dicts — how state crosses between
 the JAX package and the port.
 
-A JAX checkpoint (dpg_slam_tpu/utils/checkpoint.py) is a directory with
-``config.json`` and ``state.npz``, the SlamState flattened to keys such as
-``"poses"`` and ``"graph/edge_idx"``. The port reads both unchanged.
+A checkpoint (dpg_slam_tpu/utils/checkpoint.py's format) is a directory
+with ``config.json`` and ``state.npz``, the SlamState flattened to keys
+such as ``"poses"`` and ``"graph/edge_idx"``. The port writes the same
+files and reads the JAX package's unchanged, so checkpoints load in both
+directions.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 
 from dpg_slam_tpu_torch.config import DpgConfig
 
-__all__ = ["state_from_numpy", "state_to_numpy", "load_checkpoint"]
+__all__ = ["state_from_numpy", "state_to_numpy", "save_checkpoint", "load_checkpoint"]
 
 _STATE_FILE = "state.npz"
 _CONFIG_FILE = "config.json"
@@ -65,6 +67,18 @@ def state_from_numpy(flat: dict[str, np.ndarray], config: DpgConfig, device="cud
         return type(obj)(**vals)
 
     return rebuild(_init_state(config, device))
+
+
+def save_checkpoint(path: str | pathlib.Path, engine) -> None:
+    """Persist an engine session: state.npz (the flat state, compressed,
+    written to a temporary file and renamed into place) and config.json."""
+    path = pathlib.Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    tmp = path / (_STATE_FILE + ".tmp")
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, **state_to_numpy(engine.state))
+    tmp.replace(path / _STATE_FILE)
+    (path / _CONFIG_FILE).write_text(engine.config.to_json())
 
 
 def load_checkpoint(path: str | pathlib.Path, device="cuda"):

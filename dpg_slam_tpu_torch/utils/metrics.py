@@ -1,11 +1,11 @@
 """Trajectory evaluation metrics (numpy) — a jax-free copy of
-dpg_slam_tpu/utils/metrics.py's ATE helpers."""
+dpg_slam_tpu/utils/metrics.py: ATE and RPE."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["ate_rmse", "align_se2", "to_anchor_frame"]
+__all__ = ["ate_rmse", "align_se2", "relative_pose_error", "to_anchor_frame"]
 
 
 def to_anchor_frame(traj: np.ndarray, anchor: np.ndarray | None = None) -> np.ndarray:
@@ -44,3 +44,14 @@ def ate_rmse(est: np.ndarray, ref: np.ndarray, align: bool = False) -> float:
     p = align_se2(est, ref) if align else est[:, :2]
     err = p - ref[:, :2]
     return float(np.sqrt(np.mean(np.sum(err * err, axis=1))))
+
+
+def relative_pose_error(est: np.ndarray, ref: np.ndarray) -> float:
+    """RPE: RMSE of the per-step relative translation error."""
+    def rels(x):
+        d = x[1:, :2] - x[:-1, :2]
+        c, s = np.cos(x[:-1, 2]), np.sin(x[:-1, 2])
+        return np.stack([c * d[:, 0] + s * d[:, 1], -s * d[:, 0] + c * d[:, 1]], 1)
+
+    de = rels(np.asarray(est, np.float64)) - rels(np.asarray(ref, np.float64))
+    return float(np.sqrt(np.mean(np.sum(de * de, axis=1))))

@@ -1,8 +1,8 @@
 """Kernels K1 (csrc/icp_kernel.cu) and K2 (csrc/spd_solve_kernel.cu) on a
 CUDA card against their plain PyTorch versions, and the port's keyframe
-path, dense_pallas solve, Schur reoptimize, session-batched mode and DPG
-step on the card against the CPU, and the lane-axis DPG step against the
-one-lane step; neither the batched step loop, a DPG step nor the online
+path, dense_pallas solve, Schur reoptimize, session-batched mode, DPG
+step and experiment runner on the card against the CPU, and the
+lane-axis DPG step against the one-lane step; neither the batched step loop, a DPG step nor the online
 server's tick loop makes a host sync. The ordered segment sum gives the
 CPU's bits on the card; repeats of the reoptimize and of solve_batched, and
 the server in immediate mode against the offline stride-1 run, are equal
@@ -704,3 +704,21 @@ def test_server_immediate_matches_offline_on_card(cuda):
         got, want = (state_to_numpy(batch.session_state(x, i)) for x in (srv.states, off))
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=f"lane {i}: {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offline", [False, True])
+def test_runner_on_card_matches_cpu(cuda, offline):
+    """dpg_slam_tpu_torch.run at a small config (two box_change passes at
+    128 beams) on the card and on the CPU: keyframes per pass equal,
+    poses within 1e-2 m / rad."""
+    from dpg_slam_tpu_torch import run
+
+    argv = ["--num-beams", "128", "--max-nodes", "128", "--passes", "2"] + (["--offline"] if offline else [])
+    card, card_eng = run.run(run.parse_args(argv))
+    cpu, cpu_eng = run.run(run.parse_args([*argv, "--device", "cpu"]))
+    assert card["device"]["type"] == "cuda" and card_eng.device.type == "cuda"
+    assert [p["keyframes"] for p in card["passes"]] == [p["keyframes"] for p in cpu["passes"]]
+    d = card_eng.trajectory() - cpu_eng.trajectory()
+    d[:, 2] = np.angle(np.exp(1j * d[:, 2]))
+    assert np.abs(d).max() <= 1e-2

@@ -1,8 +1,10 @@
 """The port stands without JAX: no module of dpg_slam_tpu_torch (nor
 chip_smoke.py) imports jax or dpg_slam_tpu, the package runs keyframes, a
 second pass with DPG change detection and its map layers, the offline
-sequence mode, the session-batched mode, the online server and the
-multipass batched mode in a process where jax cannot be imported, and chip_smoke.py refuses to run without a CUDA card."""
+sequence mode, the session-batched mode, the online server, the
+multipass batched mode and the experiment runner (with its logs and
+checkpoint) in a process where jax cannot be imported, and chip_smoke.py
+refuses to run without a CUDA card."""
 
 import ast
 import os
@@ -28,7 +30,10 @@ def _imported_roots(path):
 def test_no_source_imports_jax():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    assert {PKG / "dpg" / "change_detection.py", PKG / "ops" / "raster.py", PKG / "graph" / "segment.py"} <= set(files)
+    assert {PKG / "dpg" / "change_detection.py", PKG / "ops" / "raster.py", PKG / "graph" / "segment.py",
+            PKG / "run.py", PKG / "io" / "logs.py", PKG / "io" / "suites.py", PKG / "io" / "rosbag1.py",
+            PKG / "io" / "convert.py", PKG / "viz.py", PKG / "utils" / "profiling.py",
+            PKG / "baselines" / "serial_cpu.py"} <= set(files)
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "dpg_slam_tpu"}
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
@@ -38,6 +43,8 @@ _BLOCKED_RUN = """
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import numpy as np
+import torch
+torch.set_num_threads(1)  # thousands of tiny CPU ops: threads only contend with the other test workers
 from dpg_slam_tpu_torch.config import CapacityParams, DpgConfig, DpgParams, PoseGraphParams, ScanParams
 from dpg_slam_tpu_torch.engine import DpgSlamEngine
 from dpg_slam_tpu_torch.io import dataset
@@ -96,10 +103,24 @@ assert multi.pass_number.tolist() == [1, 1] and np.isfinite(multi.poses.numpy())
 plain, plain_counts = batch.process_sessions_multipass(cfg, lane_passes, run_dpg=False, device="cpu")
 from dpg_slam_tpu_torch import scan
 assert plain_counts == multi_counts and not ((plain.labels == scan.ADDED) | (plain.labels == scan.REMOVED)).any()
+
+# The experiment runner, with its logs and checkpoint, and a replay of the logs.
+import contextlib, io, json, pathlib, tempfile
+from dpg_slam_tpu_torch import run
+from dpg_slam_tpu_torch.utils.checkpoint import load_checkpoint
+with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+    out = pathlib.Path(tmp)
+    argv = ["--device", "cpu", "--num-beams", "128", "--max-nodes", "64", "--passes", "1", "--scenario", "static"]
+    assert run.main([*argv, "--out", tmp, "--save-logs", "--save-checkpoint"]) == 0
+    summary = json.loads((out / "summary.json").read_text())
+    replay, _ = run.run(run.parse_args([*argv, "--logs", str(out / "pass0.dsl")]))
+    restored = load_checkpoint(out / "checkpoint", device="cpu")
+assert replay["passes"][0]["keyframes"] == summary["passes"][0]["keyframes"] == restored.num_nodes() > 5
 assert not any(m == "jax" or m.startswith(("jax.", "dpg_slam_tpu.")) or m == "dpg_slam_tpu"
                for m in sys.modules if sys.modules[m] is not None)
 print("three keyframes", int(eng.state.graph.num_edges), "dpg layers", len(layers["active_static"]),
-      "batched lanes", counts, "server lanes", [srv.num_nodes(i) for i in range(2)], "multipass lanes", multi_counts)
+      "batched lanes", counts, "server lanes", [srv.num_nodes(i) for i in range(2)], "multipass lanes", multi_counts,
+      "runner keyframes", summary["passes"][0]["keyframes"])
 """
 
 
@@ -119,6 +140,7 @@ def test_port_runs_with_jax_blocked():
     assert "three keyframes" in proc.stdout and "dpg layers" in proc.stdout and "batched lanes" in proc.stdout
     assert "server lanes" in proc.stdout
     assert "multipass lanes" in proc.stdout
+    assert "runner keyframes" in proc.stdout
 
 
 def _assert_refused(proc):

@@ -15,8 +15,10 @@ phase 10d's process_sequence with DPG, the multipass batched mode at
 chip_smoke.py phase 11's configuration of record (8 lanes x 2 passes) and
 one lane-axis DPG step on the 8 lanes at the end of that run, and the
 online server at chip_smoke.py phase 12's configuration (phase 9's
-sessions, 300 ticks, policy (0.5, 8)). Paths named on the command line
-run alone. Prints one JSON line per path: unprofiled wall ms, device busy
+sessions, 300 ticks, policy (0.5, 8)), and the experiment runner of
+chip_smoke.py phase 13 (run.run at its default config: the gdc suite
+offline, the b21 fixture online and offline, and offline again with 64
+node slots in place of 512). Paths named on the command line run alone. Prints one JSON line per path: unprofiled wall ms, device busy
 ms (sum of CUDA kernel and memcpy intervals), idle share of the unprofiled
 wall, kernel launches (and per keyframe on the keyframe paths, per step on
 the batched and server paths), the top kernels by device time (name,
@@ -100,6 +102,13 @@ def run_lane_dpg_step():
     return out
 
 
+def run_runner(*flags):
+    """dpg_slam_tpu_torch.run on the card; returns (summary, engine)."""
+    out = cs.run_mod.run(cs.run_mod.parse_args(list(flags)))
+    torch.cuda.synchronize()
+    return out
+
+
 PATHS = {
     "keyframe_dense": lambda: cs.run_keyframes(cs.DEVICE),
     "keyframe_dense_pallas": lambda: cs.run_keyframes(cs.DEVICE, "dense_pallas"),
@@ -114,6 +123,10 @@ PATHS = {
     "multipass_record": run_multipass,
     "dpg_step_8_lanes": run_lane_dpg_step,
     "server_record": run_server,
+    "runner_gdc_offline": lambda: run_runner("--suite", "gdc", "--offline"),
+    "runner_b21_online": lambda: run_runner("--suite", str(cs.B21_SUITE)),
+    "runner_b21_offline": lambda: run_runner("--suite", str(cs.B21_SUITE), "--offline"),
+    "runner_b21_offline_64_nodes": lambda: run_runner("--suite", str(cs.B21_SUITE), "--offline", "--max-nodes", "64"),
 }
 
 # The port's hand-written kernels, by the names of their CUDA kernels.
@@ -138,7 +151,8 @@ def main() -> None:
         out = run()
         keyframes = {"keyframe": lambda: len(out[1]), "offline": lambda: int(out[1].sum()),
                      "batched": lambda: sum(out[1]), "multipass": lambda: sum(map(sum, out[1])),
-                     "server": lambda: out.keyframes_executed}
+                     "server": lambda: out.keyframes_executed,
+                     "runner": lambda: sum(p["keyframes"] for p in out[0]["passes"])}
         kf = next((f() for k, f in keyframes.items() if name.startswith(k)), None)
         steps = {"batched": lambda: -(-max(out[1]) // cs.BATCH_STRIDE) * cs.BATCH_STRIDE,
                  "server": lambda: out.steps_executed}
