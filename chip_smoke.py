@@ -108,14 +108,30 @@ committed fixtures (1024 beams, 256 ICP points, K = 8, 30 ICP iterations,
                  of K1's call sites (keyframe batch, DPG local
                  registration, reoptimize sweep) the call with the most
                  live pairs
+ 14 lanes, NCCL, ICP modes
+                 14a batched_increment_pass (every lane's reoptimize graph
+                 solved in one lane-axis LM, fg.solve_lanes) on phase 11's
+                 pass-0 states with "dense" and "dense_pallas": each lane
+                 against its engine reoptimize with the same method (11e's
+                 bound), repeats, host syncs inside the solve (one read an
+                 LM iteration), both timed beside the 8 engine
+                 reoptimizes; K2 on the captured (8, 3·nb, 1) lanes system
+                 by 2b's rules; 14b initialize_multihost on the card in a
+                 subprocess (a world of 1 over NCCL) and
+                 distributed_reoptimize through the process-group path,
+                 equal to the bit to phase 7's in-process run; 14c phase
+                 3's keyframe path with RANSAC rejection, then with
+                 point-to-point ICP (the plain ICP on the card), card
+                 against CPU, K1 launched 0 times
 
 Repeats: the reoptimize (phase 5), 2b's dense_pallas reoptimize capture,
-9b's batched lanes and process_sequence runs and 11e's
-batched_increment_pass and engine reoptimizes each run more than once and
+9b's batched lanes and process_sequence runs, 11e's
+batched_increment_pass and engine reoptimizes and 14a's
+batched_increment_pass with both methods each run more than once and
 must give the same bits (the pose-graph sums are ordered segment sums);
 each prints a "repeat" line.
 
-Each path phase (3-13) runs with the kernels' launch counts set to 0 just
+Each path phase (3-14) runs with the kernels' launch counts set to 0 just
 before it and read just after. Each phase prints one JSON line; any failed
 check raises, so the exit code is non-zero. The last lines are the
 kernels' record, the card's nvidia-smi line and {"ok": true, "device":
@@ -131,7 +147,9 @@ import functools
 import inspect
 import io
 import json
+import os
 import pathlib
+import socket
 import subprocess
 import sys
 import tempfile
@@ -293,7 +311,7 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32_INSTR = 128 * 132 * 1.98e9
 
 K1, K2 = "icp_point_to_line", "spd_solve"
-# Launches on the paths (phases 3-13), summed over the phases.
+# Launches on the paths (phases 3-14), summed over the phases.
 LAUNCHED = {K1: 0, K2: 0}
 
 
@@ -583,10 +601,12 @@ def kernel_phase(cfg: DpgConfig):
 
 # --- phases 3-5 ---------------------------------------------------------------
 
-def run_keyframes(device: str, solve_method: str | None = None):
+def run_keyframes(device: str, solve_method: str | None = None, pg: dict | None = None):
     eng = load_checkpoint(ASSETS / "keyframe", device)
     if solve_method is not None:
         eng.solve_method = solve_method
+    if pg:
+        eng.config = eng.config.replace(pose_graph=dataclasses.replace(eng.config.pose_graph, **pg))
     with np.load(ASSETS / "keyframe" / "continuation.npz") as cont:
         scans, odom = cont["scans"], cont["odometry"]
     kfs = []
@@ -600,18 +620,26 @@ def run_keyframes(device: str, solve_method: str | None = None):
     return eng, kfs, time.perf_counter() - t0
 
 
-def check_same_run(name, gpu, cpu):
-    """Card run vs CPU run of the same engine calls."""
-    g_traj, c_traj = gpu.trajectory(), cpu.trajectory()
-    if g_traj.shape != c_traj.shape or not np.isfinite(g_traj).all():
-        raise AssertionError(f"{name}: trajectories differ in shape or are not finite")
-    d = np.abs(g_traj - c_traj)
-    d[:, 2] = np.abs(np.angle(np.exp(1j * (g_traj[:, 2].astype(np.float64) - c_traj[:, 2]))))
-    ge, ce = int(gpu.state.graph.num_edges), int(cpu.state.graph.num_edges)
-    edge_rel = abs(ge - ce) / max(ce, 1)
-    out = dict(max_pose_diff_m=float(d[:, :2].max()), max_pose_diff_rad=float(d[:, 2].max()),
-               edges_gpu=ge, edges_cpu=ce)
-    if d.max() > POSE_TOL or edge_rel > EDGE_REL:
+def run_diff(a, b) -> dict:
+    """Two runs of the same engine calls: their trajectories' largest
+    differences (m, rad) and edge counts."""
+    a_traj, b_traj = a.trajectory(), b.trajectory()
+    if a_traj.shape != b_traj.shape or not (np.isfinite(a_traj).all() and np.isfinite(b_traj).all()):
+        raise AssertionError("trajectories differ in shape or are not finite")
+    d = np.abs(a_traj - b_traj)
+    d[:, 2] = np.abs(np.angle(np.exp(1j * (a_traj[:, 2].astype(np.float64) - b_traj[:, 2]))))
+    return dict(max_pose_diff_m=float(d[:, :2].max()), max_pose_diff_rad=float(d[:, 2].max()),
+                edges_a=int(a.state.graph.num_edges), edges_b=int(b.state.graph.num_edges))
+
+
+def check_same_run(name, gpu, cpu, pose_tol: float = POSE_TOL, edge_rel: float = EDGE_REL):
+    """Card run vs CPU run of the same engine calls: poses within pose_tol
+    (m and rad), edge counts within edge_rel."""
+    d = run_diff(gpu, cpu)
+    out = dict(max_pose_diff_m=d["max_pose_diff_m"], max_pose_diff_rad=d["max_pose_diff_rad"],
+               edges_gpu=d["edges_a"], edges_cpu=d["edges_b"])
+    ge, ce = d["edges_a"], d["edges_b"]
+    if max(d["max_pose_diff_m"], d["max_pose_diff_rad"]) > pose_tol or abs(ge - ce) / max(ce, 1) > edge_rel:
         raise AssertionError(f"{name}: card and CPU runs disagree: {out}")
     return out
 
@@ -770,51 +798,57 @@ def k2_accuracy(name, H, B, ker, ker_factor, lib_factor, forward: bool, **others
 def k2_kernel_phase():
     """Phase 2b: K2 against the plain version and torch.linalg's Cholesky
     (timed as a yardstick only) at its paths' shapes."""
-    out = {}
-    for name, (H, B) in k2_inputs().items():
-        S, n, _ = H.shape
-        m = B.shape[2]
-        ker = schur.spd_solve(H, B)
-        torch.cuda.synchronize()
-        ref = schur.spd_solve_plain(H, B)
-        abs_err = (ker - ref).abs().max().item()
-        rel_err = abs_err / ref.abs().max().item()
-        X = torch.empty_like(B)
-        work = torch.empty_like(H)
-        # The two factorization layouts on this input: the factors they
-        # leave in the workspace (the same to the bit by design), and
-        # their kernel-alone times.
-        factors = {}
-        for layout in ("single", "multi"):
-            factors[layout] = torch.empty_like(H)
-            schur_cuda.run_kernel(H, B, torch.empty_like(B), factors[layout], layout)
-        torch.cuda.synchronize()
-        factor_diff = (factors["multi"].tril() - factors["single"].tril()).abs().max().item()
-        fast = n * m < 10_000
-        reps = 50 if fast else 10
-        library = lambda: torch.cholesky_solve(B, torch.linalg.cholesky_ex(H)[0])  # noqa: E731
-        lib_x = library()
-        lib_rel = ((lib_x - ref).abs().max() / ref.abs().max()).item()
-        acc = k2_accuracy(name, H, B, ker, factors["single"], torch.linalg.cholesky_ex(H)[0], True,
-                          library=lib_x, plain=ref)
-        bound_ms, bound_by = bound(2.0 * S * (n ** 3 / 3 + n * n * m), 4.0 * S * (n * n + 2 * n * m))
-        out[name] = dict(
-            S=S, n=n, m=m, launch_shape=list(schur_cuda.launch_shape(n, m)),
-            launch_plan=schur_cuda.launch_plan(S, n, m)._asdict(), factor_max_abs_diff=factor_diff,
-            max_abs_err=abs_err, max_rel_err=rel_err, library_vs_plain_rel=lib_rel,
-            cond=torch.linalg.cond(H.double()).max().item(), **acc, residual_plain=rel_residual(H, ref, B),
-            ms=cuda_ms(lambda: schur.spd_solve(H, B), reps),
-            kernel_only_ms=cuda_ms(lambda: schur_cuda.run_kernel(H, B, X, work), reps),
-            kernel_single_ms=cuda_ms(lambda: schur_cuda.run_kernel(H, B, X, work, "single"), reps),
-            kernel_multi_ms=cuda_ms(lambda: schur_cuda.run_kernel(H, B, X, work, "multi"), reps),
-            plain_ms=cuda_ms(lambda: schur.spd_solve_plain(H, B), 3 if fast else 2),
-            library_ms=cuda_ms(library, reps),
-            bound_ms=bound_ms, bound_by=bound_by,
-        )
-        emit("k2_kernel", case=name, **out[name])
-        if factor_diff != 0.0:
-            raise AssertionError(f"{name}: the many-CTA factor differs from the one-CTA factor by {factor_diff}")
-    return out
+    return {name: k2_case(name, H, B) for name, (H, B) in k2_inputs().items()}
+
+
+def k2_case(name, H, B) -> dict:
+    """K2 on one captured (S, n, n), (S, n, m) input by phase 2b's rules:
+    against the plain version, torch.linalg's Cholesky and a float64
+    solve; both factorization layouts, their factors compared; timed.
+    Prints a "k2_kernel" line and returns its record."""
+    S, n, _ = H.shape
+    m = B.shape[2]
+    ker = schur.spd_solve(H, B)
+    torch.cuda.synchronize()
+    ref = schur.spd_solve_plain(H, B)
+    abs_err = (ker - ref).abs().max().item()
+    rel_err = abs_err / ref.abs().max().item()
+    X = torch.empty_like(B)
+    work = torch.empty_like(H)
+    # The two factorization layouts on this input: the factors they
+    # leave in the workspace (the same to the bit by design), and
+    # their kernel-alone times.
+    factors = {}
+    for layout in ("single", "multi"):
+        factors[layout] = torch.empty_like(H)
+        schur_cuda.run_kernel(H, B, torch.empty_like(B), factors[layout], layout)
+    torch.cuda.synchronize()
+    factor_diff = (factors["multi"].tril() - factors["single"].tril()).abs().max().item()
+    fast = n * m < 10_000
+    reps = 50 if fast else 10
+    library = lambda: torch.cholesky_solve(B, torch.linalg.cholesky_ex(H)[0])  # noqa: E731
+    lib_x = library()
+    lib_rel = ((lib_x - ref).abs().max() / ref.abs().max()).item()
+    acc = k2_accuracy(name, H, B, ker, factors["single"], torch.linalg.cholesky_ex(H)[0], True,
+                      library=lib_x, plain=ref)
+    bound_ms, bound_by = bound(2.0 * S * (n ** 3 / 3 + n * n * m), 4.0 * S * (n * n + 2 * n * m))
+    case = dict(
+        S=S, n=n, m=m, launch_shape=list(schur_cuda.launch_shape(n, m)),
+        launch_plan=schur_cuda.launch_plan(S, n, m)._asdict(), factor_max_abs_diff=factor_diff,
+        max_abs_err=abs_err, max_rel_err=rel_err, library_vs_plain_rel=lib_rel,
+        cond=torch.linalg.cond(H.double()).max().item(), **acc, residual_plain=rel_residual(H, ref, B),
+        ms=cuda_ms(lambda: schur.spd_solve(H, B), reps),
+        kernel_only_ms=cuda_ms(lambda: schur_cuda.run_kernel(H, B, X, work), reps),
+        kernel_single_ms=cuda_ms(lambda: schur_cuda.run_kernel(H, B, X, work, "single"), reps),
+        kernel_multi_ms=cuda_ms(lambda: schur_cuda.run_kernel(H, B, X, work, "multi"), reps),
+        plain_ms=cuda_ms(lambda: schur.spd_solve_plain(H, B), 3 if fast else 2),
+        library_ms=cuda_ms(library, reps),
+        bound_ms=bound_ms, bound_by=bound_by,
+    )
+    emit("k2_kernel", case=name, **case)
+    if factor_diff != 0.0:
+        raise AssertionError(f"{name}: the many-CTA factor differs from the one-CTA factor by {factor_diff}")
+    return case
 
 
 # --- phases 6-7 ---------------------------------------------------------------
@@ -1748,8 +1782,8 @@ def multipass_reoptimize_phase(cap, cfg):
 
 
 def multipass_all(single_stream_kf_per_s: float, batched_kf_per_s: float):
-    """Phase 11 (11a-e), each part's seconds printed; returns K1's three
-    multipass cases."""
+    """Phase 11 (11a-e), each part's seconds printed; returns (K1's three
+    multipass cases, the captured run, the configuration)."""
     marks = [time.perf_counter()]
     cap, cfg = multipass_phase(single_stream_kf_per_s, batched_kf_per_s)
     marks.append(time.perf_counter())
@@ -1763,7 +1797,7 @@ def multipass_all(single_stream_kf_per_s: float, batched_kf_per_s: float):
     marks.append(time.perf_counter())
     emit("multipass_seconds", **{part: b - a for part, a, b in zip(("11ab", "11c", "11d", "11e"), marks, marks[1:])},
          total=marks[-1] - marks[0])
-    return cases
+    return cases, cap, cfg
 
 
 # --- phase 12: the online server -----------------------------------------------
@@ -2075,6 +2109,217 @@ def runner_phase():
     return cases
 
 
+# --- phase 14: the lane solve, the process group, the ICP modes ---------------
+
+LANE_METHODS = ("dense", "dense_pallas")
+# RANSAC and point-to-point on phase 3's keyframe path (the configs K1 does
+# not implement; the plain ICP runs on the card).
+ICP_MODES = {"ransac": dict(icp_use_ransac_rejection=True), "point_to_point": dict(icp_point_to_line=False)}
+
+
+def lane_solve_counts(run):
+    """(run(), {"syncs": host syncs inside fg.solve_lanes, "iterations":
+    its LM iterations, "calls": its calls}); the iterations are counted at
+    their linear solves (_dense_solve_lanes, ops.schur.spd_solve)."""
+    box = dict(syncs=0, iterations=0, calls=0)
+    real_solve, real_dense, real_spd = fg.solve_lanes, fg._dense_solve_lanes, schur.spd_solve
+
+    def tick(real):
+        def inner(*args, **kwargs):
+            box["iterations"] += 1
+            return real(*args, **kwargs)
+        return inner
+
+    def solve(*args, **kwargs):
+        torch.cuda.synchronize()
+        out, n = count_syncs(lambda: real_solve(*args, **kwargs))
+        box["syncs"] += n
+        box["calls"] += 1
+        return out
+
+    fg.solve_lanes, fg._dense_solve_lanes, schur.spd_solve = solve, tick(real_dense), tick(real_spd)
+    try:
+        return run(), box
+    finally:
+        fg.solve_lanes, fg._dense_solve_lanes, schur.spd_solve = real_solve, real_dense, real_spd
+
+
+def lane_solve_phase(cap, cfg):
+    """Phase 14a: batched_increment_pass (every lane's reoptimize graph
+    solved in one lane-axis LM, fg.solve_lanes) on phase 11's captured
+    pass-0 states with "dense" and "dense_pallas", against each lane's
+    engine reoptimize with the same method (11e's bound; equal bits
+    recorded), repeats equal to the bit, the host syncs inside the solve
+    (one read an LM iteration, none else), both timed beside the 8 engine
+    reoptimizes; K2 on the captured (S, 3·nb, 1) lanes system by phase
+    2b's rules. Returns K2's case."""
+    pass0 = cap["pass0_states"]
+    S = pass0.poses.shape[0]
+    nodes = pass0.num_nodes.tolist()
+    for method in LANE_METHODS:
+        run = (lambda m: lambda: batch_mod.batched_increment_pass(cfg, clone_states(pass0), m))(method)
+        run()  # warm
+        (_, solve), _ = counted(lambda: lane_solve_counts(run))
+        batched, batched_ms, launches = [], [], []
+        for _ in range(SPREAD_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b, got = counted(run)
+            torch.cuda.synchronize()
+            batched_ms.append(1e3 * (time.perf_counter() - t0))
+            batched.append(b)
+            launches.append(got)
+        check_repeats(f"14a batched_increment_pass {method}", [[b.poses, *b.graph] for b in batched])
+        engines, engine_ms = [], []
+        for _ in range(2):
+            lane_engines = [eng_mod.DpgSlamEngine(cfg, DEVICE) for _ in range(S)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, eng in enumerate(lane_engines):
+                eng.solve_method = method
+                eng.state = batch_mod.session_state(pass0, i)
+                eng.increment_pass()
+            torch.cuda.synchronize()
+            engine_ms.append(1e3 * (time.perf_counter() - t0))
+            engines.append(lane_engines)
+        lanes = [batch_mod.session_state(batched[0], i) for i in range(S)]
+        diffs = [pose_diff(lanes[i].poses[:n], engines[0][i].state.poses[:n]) for i, n in enumerate(nodes)]
+        bits = [same_bits(lanes[i].poses, engines[0][i].state.poses) for i in range(S)]
+        out = dict(method=method, lanes=S, nodes=nodes, max_pose_diff=max(diffs), pose_diffs=diffs,
+                   bound=POSE_TOL, lanes_equal_engine_bits=bits, batched_ms=batched_ms,
+                   one_lane_reoptimizes_ms=engine_ms, solve_calls=solve["calls"],
+                   lm_iterations=solve["iterations"], solve_host_syncs=solve["syncs"],
+                   k1_launches=[g[K1] for g in launches], k2_launches=[g[K2] for g in launches])
+        emit("lane_solve", **out)
+        if max(diffs) > POSE_TOL:
+            raise AssertionError(f"14a {method}: lanes differ from the engine's reoptimize: {out}")
+        if solve["calls"] != 1 or not solve["iterations"] <= solve["syncs"] <= solve["iterations"] + 1:
+            raise AssertionError(f"14a {method}: {solve['syncs']} host syncs in {solve['iterations']} LM iterations")
+        if method == "dense_pallas" and min(g[K2] for g in launches) < 1:
+            raise AssertionError("14a: the dense_pallas lane solve did not launch K2")
+    H, B = capture_spd_input(lambda: batch_mod.batched_increment_pass(cfg, clone_states(pass0), "dense_pallas"))
+    return k2_case("lanes_solve", H, B)
+
+
+_NCCL_RANK = r"""
+import json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from dpg_slam_tpu_torch.ops import icp_cuda, schur_cuda
+from dpg_slam_tpu_torch.parallel import distributed_reoptimize
+from dpg_slam_tpu_torch.parallel.multihost import global_mesh, initialize_multihost
+from dpg_slam_tpu_torch.utils.checkpoint import load_checkpoint
+
+assert initialize_multihost(device="cuda")
+mesh = global_mesh(int(sys.argv[2]))
+eng = load_checkpoint(sys.argv[1], "cuda")
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+state = distributed_reoptimize(mesh, eng.config, eng.state, solver="schur", pallas_elimination=True)
+torch.cuda.synchronize()
+secs = time.perf_counter() - t0
+np.savez(sys.argv[3], poses=state.poses.cpu().numpy(), **{f"graph{i}": x.cpu().numpy() for i, x in enumerate(state.graph)})
+print(json.dumps(dict(backend=dist.get_backend(), world=mesh.world, shards=mesh.size, rank_shards=list(mesh.shards),
+                      device=str(mesh.device), seconds=secs, k1=icp_cuda.LAUNCHES, k2=schur_cuda.LAUNCHES)), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nccl_phase():
+    """Phase 14b: initialize_multihost on the card in a subprocess, a world
+    of 1 over NCCL, and distributed_reoptimize through the process-group
+    path (global_mesh(4): every psum an NCCL all_gather) on
+    bench_assets/session; equal to the bit to phase 7's in-process run
+    (session_schur(True))."""
+    want = session_schur(True)
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1", RANK="0",
+                   LOCAL_RANK="0", PYTHONPATH=str(ROOT))
+        out = pathlib.Path(tmp) / "rank0.npz"
+        proc = subprocess.run([sys.executable, "-c", _NCCL_RANK, str(ASSETS / "session"), str(SHARDS), str(out)],
+                              cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"the NCCL rank failed:\n{proc.stdout}\n{proc.stderr}")
+        rank = json.loads(proc.stdout.strip().splitlines()[-1])
+        with np.load(out) as got:
+            got_poses = torch.from_numpy(got["poses"])
+            got_graph = [torch.from_numpy(got[f"graph{i}"]) for i in range(len(want.graph))]
+    LAUNCHED[K1] += rank["k1"]
+    LAUNCHED[K2] += rank["k2"]
+    equal = same_bits(got_poses, want.poses.cpu()) and all(
+        same_bits(a, b.cpu()) for a, b in zip(got_graph, want.graph))
+    rec = dict(**rank, equal_to_in_process_bits=equal,
+               max_pose_diff=pose_diff(got_poses, want.poses.cpu()),
+               note="two ranks cannot share one card under NCCL, so this is a world of 1; the wall clock "
+                    "across several cards stays unmeasured until a 4-chip cell exists")
+    emit("nccl", **rec)
+    if rank["backend"] != "nccl" or not equal:
+        raise AssertionError(f"the NCCL process-group reoptimize differs from phase 7's in-process run: {rec}")
+    if rank["k1"] < 1 or rank["k2"] < 1:
+        raise AssertionError(f"the NCCL reoptimize did not launch K1 and K2: {rec}")
+
+
+def cross_term_sqdist(a, b):
+    """The JAX package's d2 form, |a|² + |b|² - 2 a·b: ops.icp's distances
+    (dx² + dy²) rounded otherwise."""
+    cross = torch.einsum("bpc,bqc->bpq", a, b)
+    return torch.sum(a * a, dim=-1)[:, :, None] + torch.sum(b * b, dim=-1)[:, None, :] - 2.0 * cross
+
+
+def icp_modes_phase():
+    """Phase 14c: phase 3's keyframe path with RANSAC rejection on, then
+    with point-to-point ICP (the plain ICP on the card, as the JAX package
+    keeps them on its XLA path), on the card and on the CPU (the same
+    RANSAC samples: one generator on the CPU), K1 launched 0 times. Card
+    against CPU within POSE_TOL and EDGE_REL, or twice the CPU's own
+    spread where that is larger: the CPU run again with the JAX package's
+    d2 form, a change in the last bits of the distances as the card's
+    arithmetic makes. (RANSAC counts inliers under a 0.05 m threshold; on
+    this path one more or fewer moves a pair, a loop closure and its
+    factor, and the CPU alone then ends 0.087 m and one edge away.)"""
+    for name, pg in ICP_MODES.items():
+        (gpu, kfs, secs), got = counted(lambda: run_keyframes(DEVICE, pg=pg))
+        cpu, kfs_cpu, cpu_secs = run_keyframes("cpu", pg=pg)
+        real = icp._pairwise_sqdist
+        icp._pairwise_sqdist = cross_term_sqdist
+        try:
+            alt, kfs_alt, _ = run_keyframes("cpu", pg=pg)
+        finally:
+            icp._pairwise_sqdist = real
+        if not kfs == kfs_cpu == kfs_alt:
+            raise AssertionError(f"14c {name}: keyframe indices differ: {kfs} vs {kfs_cpu} vs {kfs_alt}")
+        spread = run_diff(cpu, alt)
+        pose_tol = max(POSE_TOL, 2.0 * max(spread["max_pose_diff_m"], spread["max_pose_diff_rad"]))
+        edge_rel = max(EDGE_REL, 2.0 * abs(spread["edges_a"] - spread["edges_b"]) / max(spread["edges_a"], 1))
+        rec = dict(mode=name, keyframes=len(kfs), seconds=secs, kf_per_s=len(kfs) / secs, cpu_seconds=cpu_secs,
+                   k1_launches=got[K1], cpu_spread=spread, pose_bound=pose_tol, edge_bound=edge_rel)
+        rec.update(check_same_run(f"14c {name}", gpu, cpu, pose_tol, edge_rel))
+        emit("icp_mode", **rec)
+        if got[K1] != 0:
+            raise AssertionError(f"14c {name}: K1 launched {got[K1]} times on a config it does not implement")
+
+
+def phase14(cap, cfg):
+    """Phase 14 (14a-c), each part's seconds printed; returns K2's lane case."""
+    marks = [time.perf_counter()]
+    k2_lanes = lane_solve_phase(cap, cfg)
+    marks.append(time.perf_counter())
+    _, got = counted(nccl_phase)
+    marks.append(time.perf_counter())
+    icp_modes_phase()
+    marks.append(time.perf_counter())
+    emit("phase14_seconds", **{part: b - a for part, a, b in zip(("14a", "14b", "14c"), marks, marks[1:])},
+         total=marks[-1] - marks[0])
+    return k2_lanes
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -2105,13 +2350,15 @@ def main() -> None:
     batched, (batched_err, batched_k1), batched_k2, streams = batched_phase(len(kf_dense[1]) / kf_dense[2])
     times["batched_step"] = batched_k1
     dpg_err, times["dpg_local_reg"] = dpg_phase()
-    multi = multipass_all(len(kf_dense[1]) / kf_dense[2], batched["kf_per_s"])
+    multi, multi_cap, multi_cfg = multipass_all(len(kf_dense[1]) / kf_dense[2], batched["kf_per_s"])
     for name, (_, case) in multi.items():
         times[name] = case
     server_err, times["server_step"] = server_phase(*streams)
     runner = runner_phase()
     for name, (_, case) in runner.items():
         times[name] = case
+    k2_lanes = phase14(multi_cap, multi_cfg)
+    del multi_cap
     for name, launches in LAUNCHED.items():
         if launches == 0:
             raise AssertionError(f"the paths never launched {name}")
@@ -2140,7 +2387,8 @@ def main() -> None:
             "source": "dpg_slam_tpu_torch/csrc/spd_solve_kernel.cu",
             "replaces": "dpg_slam_tpu/ops/schur_pallas.py:247",
             "launches": LAUNCHED[K2],
-            "max_abs_err": max(max(v["max_abs_err"] for v in k2.values()), batched_k2["max_abs_err"]),
+            "max_abs_err": max(max(v["max_abs_err"] for v in k2.values()), batched_k2["max_abs_err"],
+                               k2_lanes["max_abs_err"]),
             "ms": k2_main["ms"],
             "plain_ms": k2_main["plain_ms"],
             "bound_ms": k2_main["bound_ms"],
@@ -2149,7 +2397,7 @@ def main() -> None:
             "cases": {name: {k: v[k] for k in ("S", "n", "m", "launch_plan", "ms", "kernel_only_ms", "kernel_single_ms",
                                                  "kernel_multi_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                                                  "factor_max_abs_diff")}
-                      for name, v in k2.items()} | {"batched_lanes": batched_k2},
+                      for name, v in (k2 | {"lanes_solve": k2_lanes}).items()} | {"batched_lanes": batched_k2},
         },
     ]}), flush=True)
     print(smi, flush=True)

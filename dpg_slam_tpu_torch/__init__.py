@@ -6,16 +6,18 @@ module layout so each module's counterpart is found by path:
   config     — the same frozen dataclass tree (JSON-compatible)
   geom       — SE(2) math on tensors
   scan       — scan data model
-  ops.icp    — batched point-to-line ICP (plain PyTorch) + covariance;
-               on a CUDA tensor it launches the hand-written kernel in
-               ops.icp_cuda (csrc/icp_kernel.cu)
+  ops.icp    — batched ICP (plain PyTorch: point-to-line or
+               point-to-point, optional RANSAC rejection) + covariance;
+               point-to-line without RANSAC on a CUDA tensor launches the
+               hand-written kernel in ops.icp_cuda (csrc/icp_kernel.cu)
   ops.schur  — batched SPD solve (plain PyTorch); on a CUDA tensor it
                launches the hand-written kernel in ops.schur_cuda
                (csrc/spd_solve_kernel.cu)
   ops.raster — occupancy rasterization into dense int8 windows
-  graph      — factor-graph LM solver
+  graph      — factor-graph LM solver (one graph, or S on a lane axis)
   parallel   — sharded ICP, edge-sharded CG, Schur-elimination solve and
-               distributed reoptimize over S shards on one device
+               distributed reoptimize over S shards, in one process or
+               over the ranks of a torch.distributed group (multihost)
   dpg        — DPG change detection (execute_dpg, and execute_dpg_lanes
                over a lane axis), map layers and the occupancy snapshot
   engine     — SLAM session engine: online keyframe path with a DPG step

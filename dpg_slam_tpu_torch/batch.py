@@ -30,7 +30,8 @@ lanes' DPG step (`dpg.change_detection.execute_dpg_lanes`, one K1 launch
 for every lane's local registration) after every keyframe step of pass
 >= 1, and between passes `batched_increment_pass`: every lane's
 reoptimize sweep in one K1 launch, then each lane's graph rebuilt and
-solved. The pass boundary reads the host, as the JAX package's does.
+every lane solved in one lane-axis LM (`fg.solve_lanes`). The pass
+boundary reads the host, as the JAX package's does.
 
 The online mode (`BatchedSlamServer`) serves S live streams: the same
 keyframe gate runs on the host tick by tick, each lane's gated scan waits
@@ -540,9 +541,11 @@ def batched_increment_pass(cfg: DpgConfig, states: SlamState, solve_method: str 
     compacts each lane's live pairs (as the engine does), padded to a
     common count B on a common power-of-two node bucket. Every lane's
     compacted sweep goes into one icp_align call of S·B pairs (one K1
-    launch on the card); each lane's results are scattered back, its graph
-    rebuilt and solved on its own (fg.solve, as the engine's reoptimize).
-    Raises RuntimeError where a lane's factor candidates overflow the edge
+    launch on the card); each lane's results are scattered back and its
+    graph rebuilt (engine._reoptimize_graph), then the S graphs are solved
+    on the lane axis in one fg.solve_lanes call (the engine's fg.solve
+    settings; JAX vmaps its solve's while_loop the same way). Raises
+    RuntimeError where a lane's factor candidates overflow the edge
     capacity."""
     S = states.poses.shape[0]
     dev = states.poses.device
@@ -570,22 +573,26 @@ def batched_increment_pass(cfg: DpgConfig, states: SlamState, solve_method: str 
         **{k: torch.cat([kw[k] for kw in kwargs]) for k in kwargs[0]},
     )
 
-    poses, graphs = [], []
+    graphs = []
     E = cfg.capacity.max_edges
     for s in range(S):
         lane_res = icp.ICPResult(*(x[s * B:(s + 1) * B] for x in res))
-        p, g, n_edge_cand = eng._reoptimize_finish(cfg, lanes[s], pairs[s], ci[s], cval[s], lane_res, solve_method, nb)
+        g, n_edge_cand = eng._reoptimize_graph(cfg, eng._reoptimize_bucket(lanes[s], nb), pairs[s], ci[s], cval[s],
+                                               lane_res)
         # The engine's host bound: the candidate count is read only where
         # it can overflow.
         if int(num_nodes[s]) - 1 + compacted[s][2] > E and int(n_edge_cand) > E:
             raise RuntimeError(
                 f"lane {s}: reoptimize produced {int(n_edge_cand)} factor candidates but edge capacity is {E}"
             )
-        poses.append(p)
         graphs.append(g)
+    graph = fg.FactorGraph(*(torch.stack(x) for x in zip(*graphs)))
+    node_mask = torch.arange(nb, device=dev) < states.num_nodes[:, None]
+    poses_b, _ = fg.solve_lanes(states.poses[:, :nb], graph, node_mask,
+                                **eng._reoptimize_solve_kwargs(cfg, solve_method))
     return states._replace(
-        poses=torch.stack(poses),
-        graph=fg.FactorGraph(*(torch.stack(x) for x in zip(*graphs))),
+        poses=torch.cat([poses_b, states.poses[:, nb:]], dim=1),
+        graph=graph,
         pass_number=states.pass_number + 1,
         first_scan_for_pass=torch.ones_like(states.first_scan_for_pass),
         odom_initialized=torch.zeros_like(states.odom_initialized),

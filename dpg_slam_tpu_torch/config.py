@@ -44,15 +44,16 @@ class PoseGraphParams:
     icp_max_correspondence_distance: float = 0.6      # fine gate (m)
     ransac_iterations: int = 50
     ransac_outlier_rejection_threshold: float = 0.05
-    icp_use_ransac_rejection: bool = False  # not ported: raises
+    icp_use_ransac_rejection: bool = False  # off by default; on, ICP runs its plain version (ops/icp.py)
     icp_use_reciprocal_correspondences: bool = True
     downsample_icp_points_ratio: int = 5  # keep 1 in 5 beams
-    icp_point_to_line: bool = True        # point-to-point is not ported: raises
+    icp_point_to_line: bool = True        # False: point-to-point, on the plain version (ops/icp.py)
     icp_max_points: int = 256             # padded per-cloud point budget
     use_pallas_icp: bool = False
     # Kept for JSON parity with the JAX package and ignored by the port:
     # the tensor's device picks the ICP path (ops/icp.icp_align — the plain
-    # PyTorch version on CPU, the CUDA kernel on a GPU).
+    # PyTorch version on CPU, the CUDA kernel on a GPU for point-to-line
+    # without RANSAC).
     icp_coarse_gate_multiplier: float = 3.0
     # Loop-closure pairs start at this multiple of the fine gate and anneal
     # to 1x (successive pairs use 1x).

@@ -633,18 +633,16 @@ def _reoptimize_bucket(state: SlamState, nb: int) -> SlamState:
     return state._replace(**{f: getattr(state, f)[:nb] for f in _NODE_FIELDS})
 
 
-def _reoptimize_finish(cfg: DpgConfig, state: SlamState, pairs, compact_idx, cval, res: icp.ICPResult,
-                       solve_method: str, nb: int):
-    """The reoptimize after its ICP sweep: the compacted results scattered
-    back over the enumerated pairs, the graph rebuilt from scratch, a full
-    LM solve on the bucket. Returns (full-capacity poses, graph, number of
-    edge candidates).
+def _reoptimize_graph(cfg: DpgConfig, sub: SlamState, pairs, compact_idx, cval, res: icp.ICPResult):
+    """The reoptimize's factor graph from its ICP sweep on the bucketed
+    state `sub`: the compacted results scattered back over the enumerated
+    pairs, the graph rebuilt from scratch. Returns (graph, number of edge
+    candidates).
 
     Slots the compaction did not cover keep their seed transform with
     converged=False and the fixed covariance (successive factors degrade
     to the odometry-consistent measurement; closures are dropped)."""
     pg = cfg.pose_graph
-    sub = _reoptimize_bucket(state, nb)
     flat_src, flat_tgt, flat_valid, seeds, _ = pairs
     n_flat = flat_src.shape[0]
     live = compact_idx[cval]
@@ -659,11 +657,13 @@ def _reoptimize_finish(cfg: DpgConfig, state: SlamState, pairs, compact_idx, cva
     covs = torch.diag(fixed).expand(n_flat, 3, 3).clone()
     covs[live] = res.covariance[cval]
 
-    graph, n_edge_cand = _reoptimize_pack_graph(
-        cfg, sub, flat_src, flat_tgt, flat_valid, transforms, converged, covs
-    )
-    poses_b, _ = fg.solve(
-        sub.poses, graph, sub.node_mask,
+    return _reoptimize_pack_graph(cfg, sub, flat_src, flat_tgt, flat_valid, transforms, converged, covs)
+
+
+def _reoptimize_solve_kwargs(cfg: DpgConfig, solve_method: str) -> dict:
+    """The reoptimize's cold LM solve settings (fg.solve / fg.solve_lanes)."""
+    pg = cfg.pose_graph
+    return dict(
         # Ours, capped by the reference's GTSAM iteration cap.
         max_iterations=min(pg.gn_max_iterations, pg.gtsam_max_iterations),
         damping_init=pg.gn_damping_init,
@@ -671,18 +671,20 @@ def _reoptimize_finish(cfg: DpgConfig, state: SlamState, pairs, compact_idx, cva
         robust_delta=pg.robust_delta,
         rel_tol=pg.gn_tol,
     )
-    return torch.cat([poses_b, state.poses[nb:]]), graph, n_edge_cand
 
 
 def _reoptimize(cfg: DpgConfig, state: SlamState, compact_idx, compact_valid, solve_method: str, nb: int):
     """Global re-alignment at a pass boundary (reoptimize,
     dpg_slam.cc:35-120) on the node bucket [:nb]: the compacted ICP sweep
-    over the live pairs (_reoptimize_icp_inputs, one icp_align call), then
-    _reoptimize_finish. Returns (full-capacity poses, graph, number of edge
-    candidates)."""
-    pairs, args, kwargs, cval = _reoptimize_icp_inputs(cfg, _reoptimize_bucket(state, nb), compact_idx, compact_valid)
+    over the live pairs (_reoptimize_icp_inputs, one icp_align call), the
+    graph rebuilt (_reoptimize_graph), a full LM solve on the bucket.
+    Returns (full-capacity poses, graph, number of edge candidates)."""
+    sub = _reoptimize_bucket(state, nb)
+    pairs, args, kwargs, cval = _reoptimize_icp_inputs(cfg, sub, compact_idx, compact_valid)
     res = icp.icp_align(*args, **kwargs)
-    return _reoptimize_finish(cfg, state, pairs, compact_idx, cval, res, solve_method, nb)
+    graph, n_edge_cand = _reoptimize_graph(cfg, sub, pairs, compact_idx, cval, res)
+    poses_b, _ = fg.solve(sub.poses, graph, sub.node_mask, **_reoptimize_solve_kwargs(cfg, solve_method))
+    return torch.cat([poses_b, state.poses[nb:]]), graph, n_edge_cand
 
 
 def _reoptimize_compaction_host(cfg: DpgConfig, poses, pass_ids, n_nodes: int, nb: int, pad_unit: int = 64):

@@ -16,7 +16,10 @@ decisions on the host.
 (kernel K2 on a CUDA tensor). ``solve_batched`` runs S graphs stacked on
 a leading lane axis (batch.py's solver): one flat segment sum over the
 S·N node slots per block kind and assembly, and accept/stop decisions kept
-as per-lane device masks, so it never reads the host.
+as per-lane device masks, so it never reads the host. ``solve_lanes`` is
+``solve`` on such a stack with the JAX package's vmapped semantics (the
+pass boundary's solver): every lane stops on its own rules, and the loop
+reads the host once an iteration.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ __all__ = [
     "total_error",
     "solve",
     "solve_batched",
+    "solve_lanes",
 ]
 
 
@@ -331,11 +335,13 @@ def _assemble_plan(g: FactorGraph, N: int) -> SegmentPlan:
 
 def _matvec_plan(g: FactorGraph, N: int) -> SegmentPlan:
     """The segment plan of _matvec: each node's diagonal product, then the
-    `i` and `j` ends of the live edges."""
+    `i` and `j` ends of the live edges (over the S·N node slots of a graph
+    stacked on a lane axis, lane s at offset s·N)."""
+    S = g.prior_idx.shape[0] if g.prior_idx.ndim == 2 else 1
     _, i_idx, j_idx = _factor_rows(g, N)
-    emask = g.edge_mask
-    return segment_plan(torch.cat([torch.arange(N, device=i_idx.device), torch.where(emask, i_idx, N),
-                                   torch.where(emask, j_idx, N)]), N)
+    emask = g.edge_mask.reshape(-1)
+    return segment_plan(torch.cat([torch.arange(S * N, device=i_idx.device), torch.where(emask, i_idx, S * N),
+                                   torch.where(emask, j_idx, S * N)]), S * N)
 
 
 def _dense_plan(g: FactorGraph, N: int) -> SegmentPlan:
@@ -401,16 +407,17 @@ def _normal_blocks(pJ, pr, Ji, Jj, er, plan: SegmentPlan):
 
 
 def _matvec(eq: _NormalEq, g: FactorGraph, v: torch.Tensor, plan: SegmentPlan | None = None) -> torch.Tensor:
-    """H v from the block form — O(E), no dense H (plan: _matvec_plan)."""
-    N = v.shape[0]
-    emask = g.edge_mask
+    """H v from the block form — O(E), no dense H (plan: _matvec_plan).
+    v is (N, 3), or (S, N, 3) with eq and g stacked on a lane axis."""
+    N = v.shape[-2]
     _, i_idx, j_idx = _factor_rows(g, N)
-    em = emask.to(v.dtype)[:, None]
+    em = g.edge_mask.reshape(-1).to(v.dtype)[:, None]
+    vf, off = v.reshape(-1, 3), eq.off.reshape(-1, 3, 3)
     return segment_sum(torch.cat([
-        torch.einsum("nab,nb->na", eq.diag, v),
-        em * torch.einsum("eab,eb->ea", eq.off, v[j_idx]),
-        em * torch.einsum("eba,eb->ea", eq.off, v[i_idx]),
-    ]), plan or _matvec_plan(g, N))
+        torch.einsum("nab,nb->na", eq.diag.reshape(-1, 3, 3), vf),
+        em * torch.einsum("eab,eb->ea", off, vf[j_idx]),
+        em * torch.einsum("eba,eb->ea", off, vf[i_idx]),
+    ]), plan or _matvec_plan(g, N)).view(v.shape)
 
 
 def _dense_H(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, plan: SegmentPlan | None = None) -> torch.Tensor:
@@ -649,9 +656,11 @@ def _assemble_lanes(
 
 
 def _dense_solve_lanes(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor,
-                       plan: SegmentPlan | None = None) -> torch.Tensor:
-    """_dense_solve for every lane of the (S, 3N, 3N) damped systems; a
-    lane whose factorization failed gets NaN, which its LM step rejects.
+                       plan: SegmentPlan | None = None, lanes=None) -> torch.Tensor:
+    """_dense_solve for every lane of the (S, 3N, 3N) damped systems, or
+    for the lanes listed in `lanes` (host ints; the others get a zero
+    step); a lane whose factorization failed gets NaN, which its LM step
+    rejects.
 
     The systems are factored one lane at a time: on an H100 the batched
     cholesky_ex of the session-batched mode's (16, 384, 384) systems
@@ -661,11 +670,13 @@ def _dense_solve_lanes(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor,
     S, N = eq.diag.shape[:2]
     H = _dense_H(eq, g, damping, plan)
     b = eq.rhs.reshape(S, 3 * N, 1)
-    deltas = []
-    for s in range(S):
+    if lanes is None:
+        lanes = range(S)
+    deltas = torch.zeros_like(b)
+    for s in lanes:
         L, info = torch.linalg.cholesky_ex(H[s])
-        deltas.append(torch.where(info == 0, torch.cholesky_solve(b[s], L), float("nan")))
-    return torch.stack(deltas).reshape(S, N, 3)
+        deltas[s] = torch.where(info == 0, torch.cholesky_solve(b[s], L), float("nan"))
+    return deltas.reshape(S, N, 3)
 
 
 def _dense_cg_fixed(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, iters: int,
@@ -770,4 +781,174 @@ def solve_batched(
         damping = torch.where(done, damping, torch.clamp(step, 1e-9, 1e6))
         accepted = accepted + (accept & ~done).to(torch.int32)
         done = done | new_done
+    return poses, SolveStats(initial_error=err0, final_error=err, iterations=accepted)
+
+
+# --------------------------------------------------------------------------
+# The LM solve on a lane axis (fg.solve under jax.vmap)
+# --------------------------------------------------------------------------
+
+def _lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-lane inner product of (S, ...) tensors: (S,)."""
+    return torch.sum(a * b, dim=tuple(range(1, a.ndim)))
+
+
+def _lane_where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.where with an (S,) lane mask broadcast over a's trailing dims."""
+    return torch.where(mask.view((-1,) + (1,) * (a.ndim - 1)), a, b)
+
+
+def _dense_cg_solve_lanes(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, iters: int, live: torch.Tensor,
+                          rel_tol: float = 1e-6, plan: SegmentPlan | None = None) -> torch.Tensor:
+    """_dense_cg_solve for every lane of the (S, 3N, 3N) systems, as under
+    jax.vmap: a lane iterates while its residual is above the stop and
+    `iters` is not reached, and a stopped lane (or one not `live`) keeps its
+    values. One host read a CG iteration: which lanes still iterate. Their
+    dense matvecs run one lane at a time (a batched matmul would round
+    otherwise than _dense_cg_solve's), the rest on all lanes at once."""
+    S, N = eq.diag.shape[:2]
+    Hf = _dense_H(eq, g, damping, plan)
+    eye = torch.eye(3, dtype=eq.diag.dtype, device=eq.diag.device)
+    Minv = geom.inv_sym3(eq.diag + damping[:, None, None, None] * eye)
+
+    def precond(v):
+        return torch.einsum("snab,snb->sna", Minv, v.view(S, N, 3)).reshape(S, -1)
+
+    b = eq.rhs.reshape(S, -1)
+    b2 = _lane_dot(b, b)
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    p = z
+    rz = _lane_dot(r, z)
+    it = 0
+    while it < iters:
+        active = live & (_lane_dot(r, r) > rel_tol * rel_tol * b2)
+        active_h = active.cpu()
+        if not bool(active_h.any()):
+            break
+        Ap = torch.zeros_like(p)
+        for s in torch.nonzero(active_h)[:, 0].tolist():
+            Ap[s] = Hf[s] @ p[s]
+        denom = _lane_dot(p, Ap)
+        alpha = torch.where(denom > 1e-20, rz / denom, 0.0)[:, None]
+        x_n = x + alpha * p
+        r_n = r - alpha * Ap
+        z = precond(r_n)
+        rz_new = _lane_dot(r_n, z)
+        beta = torch.where(rz > 1e-20, rz_new / rz, 0.0)[:, None]
+        p_n = z + beta * p
+        x, r, p = (_lane_where(active, n, o) for n, o in ((x_n, x), (r_n, r), (p_n, p)))
+        rz = torch.where(active, rz_new, rz)
+        live = active
+        it += 1
+    return x.reshape(S, N, 3)
+
+
+def _cg_solve_lanes(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, iters: int,
+                    plan: SegmentPlan | None = None) -> torch.Tensor:
+    """_cg_solve for every lane (a fixed count, as JAX's scan: no stop to
+    freeze on); the block-sparse matvec over the S·N node slots."""
+    S, N = eq.diag.shape[:2]
+    plan = plan or _matvec_plan(g, N)
+    eye = torch.eye(3, dtype=eq.diag.dtype, device=eq.diag.device)
+    diag_d = eq.diag + damping[:, None, None, None] * eye
+    eqd = _NormalEq(diag_d, eq.off, eq.rhs)
+    Minv = geom.inv_sym3(diag_d)
+
+    def precond(v):
+        return torch.einsum("snab,snb->sna", Minv, v)
+
+    b = eq.rhs
+    x = torch.zeros_like(b)
+    r = b - _matvec(eqd, g, x, plan)
+    z = precond(r)
+    p = z
+    rz = _lane_dot(r, z)
+    for _ in range(iters):
+        Ap = _matvec(eqd, g, p, plan)
+        denom = _lane_dot(p, Ap)
+        alpha = torch.where(denom > 1e-20, rz / denom, 0.0)[:, None, None]
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = _lane_dot(r, z)
+        beta = torch.where(rz > 1e-20, rz_new / rz, 0.0)[:, None, None]
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
+def solve_lanes(
+    poses: torch.Tensor,
+    g: FactorGraph,
+    node_mask: torch.Tensor,
+    *,
+    max_iterations: int = 20,
+    damping_init: float = 1e-4,
+    method: str = "dense",
+    cg_iterations: int = 64,
+    robust_delta: float | None = None,
+    gradient_tol: float = 0.0,
+    terminate_on_reject: bool = False,
+    rel_tol: float = 1e-6,
+) -> tuple[torch.Tensor, SolveStats]:
+    """solve for S graphs stacked on a leading lane axis (poses (S, N, 3),
+    node_mask (S, N), graph leaves (S, ...)), with the semantics of the
+    JAX package's solve under jax.vmap: each lane has its own damping,
+    error, accept flag and done flag, runs while it is not done, below
+    max_iterations and above gradient_tol, and is frozen (poses, damping,
+    error) once it stops, as a vmapped while_loop freezes it.
+
+    The same methods as solve: "dense" factors the live lanes one at a
+    time (_dense_solve_lanes), "dense_pallas" solves all S systems in one
+    ops/schur.spd_solve call (one K2 launch on the card), "dense_cg" and
+    "cg" run their CG on every lane at once. Each iteration assembles
+    once, at the candidate poses: that sweep's error is the accept test
+    and its normal equations the next linearization of an accepting lane.
+    The loop reads the host once an iteration (which lanes are live), and
+    "dense_cg" once more a CG iteration. SolveStats holds (S,) tensors.
+    """
+    if method not in ("dense", "dense_pallas", "dense_cg", "cg"):
+        raise ValueError(f"unknown solve method {method!r}")
+    S, N = poses.shape[:2]
+    aplan = _assemble_plan(g, N)
+    splan = _matvec_plan(g, N) if method == "cg" else _dense_plan(g, N)
+    eq, err = _assemble_lanes(poses, g, node_mask, robust_delta, aplan)
+    err0 = err
+    gnorm = eq.rhs.abs().amax(dim=(1, 2))
+    damping = torch.full((S,), damping_init, dtype=poses.dtype, device=poses.device)
+    accepted = torch.zeros((S,), dtype=torch.int32, device=poses.device)
+    done = torch.zeros((S,), dtype=torch.bool, device=poses.device)
+    for it in range(max_iterations):
+        live = ~done & (gnorm > gradient_tol)
+        live_h = live.cpu()  # the iteration's one host read
+        if not bool(live_h.any()):
+            break
+        if method == "dense":
+            delta = _dense_solve_lanes(eq, g, damping, splan, lanes=torch.nonzero(live_h)[:, 0].tolist())
+        elif method == "dense_pallas":
+            delta = schur.spd_solve(_dense_H(eq, g, damping, splan), eq.rhs.reshape(S, 3 * N, 1)).reshape(S, N, 3)
+        elif method == "dense_cg":
+            delta = _dense_cg_solve_lanes(eq, g, damping, cg_iterations, live, plan=splan)
+        else:
+            delta = _cg_solve_lanes(eq, g, damping, cg_iterations, splan)
+        cand = poses - delta
+        cand = torch.cat([cand[..., :2], geom.wrap_angle(cand[..., 2:3])], dim=-1)
+        eq_c, err_c = _assemble_lanes(cand, g, node_mask, robust_delta, aplan)
+        accept = err_c < err
+        small = (err - err_c) / torch.clamp(err, min=1e-12) < rel_tol
+        if terminate_on_reject:
+            stop = small & (accept | (accepted > 0) | (it >= 1))
+        else:
+            stop = accept & small
+        take = accept & live
+        poses = _lane_where(take, cand, poses)
+        err = torch.where(take, err_c, err)
+        eq = _NormalEq(*(_lane_where(take, a, b) for a, b in zip(eq_c, eq)))
+        gnorm = torch.where(take, eq_c.rhs.abs().amax(dim=(1, 2)), gnorm)
+        step = torch.clamp(damping * torch.where(accept, 0.5, 4.0), 1e-9, 1e6)
+        damping = torch.where(live, step, damping)
+        accepted = accepted + take.to(torch.int32)
+        done = done | (live & stop)
     return poses, SolveStats(initial_error=err0, final_error=err, iterations=accepted)

@@ -1,20 +1,27 @@
-"""Batched 2D point-to-line ICP with closed-form covariance — the port of
+"""Batched 2D ICP with closed-form covariance — the port of
 dpg_slam_tpu/ops/icp.py.
 
-``icp_align`` dispatches on the tensor's device:
-  * a CPU tensor runs the plain PyTorch version below (``_icp_align_impl``,
-    the JAX package's XLA array program: a (B, P, P) squared-distance
-    matrix, a one-hot match matrix, one damped Gauss-Newton step per
-    iteration);
-  * a CUDA tensor launches the hand-written kernel (ops/icp_cuda.py,
-    csrc/icp_kernel.cu), which runs the whole iteration loop per pair.
-There is no fallback between the two: a kernel that cannot build or launch
-raises. The plain version is device-agnostic, so it is also what the
-kernel is held against on the card.
+``icp_align`` picks its path from the config and the tensor's device,
+before anything is launched:
+  * point-to-line without RANSAC rejection (every default path) on a CUDA
+    tensor launches the hand-written kernel (ops/icp_cuda.py,
+    csrc/icp_kernel.cu), which runs the whole iteration loop per pair. A
+    kernel that cannot build or launch raises: nothing falls back;
+  * every other call runs the plain PyTorch version below
+    (``_icp_align_impl``, the JAX package's XLA array program: a (B, P, P)
+    squared-distance matrix, a one-hot match matrix, one damped
+    Gauss-Newton step per iteration). That is the CPU's path, and on the
+    card the path of the configs the kernel does not implement, RANSAC
+    correspondence rejection and point-to-point residuals, as the JAX
+    package keeps those on its XLA path (its engine's _kernel_config).
+The plain version is device-agnostic, so it is also what the kernel is
+held against on the card.
 
-Not ported (they raise NotImplementedError): RANSAC correspondence
-rejection (it draws from jax.random; off by default) and point-to-point
-residuals (never the default). Both are listed in ROADMAP.md.
+RANSAC draws its 2-point samples from a torch.Generator seeded 17 (the JAX
+package's PRNG key) on the CPU, for every iteration at once
+(``ransac_samples``), and moves them to the tensors' device, so the card
+and the CPU use the same samples; ``icp_align(..., ransac_samples=...)``
+takes them from the caller instead.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch
 from dpg_slam_tpu_torch import geom
 from dpg_slam_tpu_torch.config import PoseGraphParams
 
-__all__ = ["ICPResult", "censi_covariance", "estimate_normals", "icp_align"]
+__all__ = ["ICPResult", "censi_covariance", "estimate_normals", "icp_align", "ransac_samples"]
 
 _BIG = 1e12
 _DAMPING = 1e-3
@@ -188,24 +195,81 @@ class _IterState(NamedTuple):
     fitness: torch.Tensor    # (B,)
 
 
+def _ransac_keep(moved, q, w, idx, threshold):
+    """RANSAC correspondence rejection (the JAX package's _icp_iteration,
+    PCL's setRANSACIterations analog): per pair, a rigid model from each
+    of R 2-point samples idx (B, R, 2) of the correspondences, scored by
+    its inlier count under `threshold`; the correspondences the best model
+    leaves out are dropped, unless it has fewer than 3 inliers. Returns
+    the (B, P) mask to keep."""
+    B, R, _ = idx.shape
+
+    def take(pts, k):  # (B, R, 2): the sampled points
+        return torch.gather(pts, 1, idx[..., k, None].expand(B, R, 2))
+
+    a1, b1, a2, b2 = take(moved, 0), take(q, 0), take(moved, 1), take(q, 1)
+    va, vb = a2 - a1, b2 - b1
+    sample_ok = (
+        torch.gather(w, 1, idx[..., 0]) & torch.gather(w, 1, idx[..., 1])
+        & (torch.sum(va * va, dim=-1) > 1e-6) & (torch.sum(vb * vb, dim=-1) > 1e-6)
+    )
+    ang = torch.atan2(vb[..., 1], vb[..., 0]) - torch.atan2(va[..., 1], va[..., 0])
+    cs, sn = torch.cos(ang), torch.sin(ang)
+    tx = b1[..., 0] - (cs * a1[..., 0] - sn * a1[..., 1])
+    ty = b1[..., 1] - (sn * a1[..., 0] + cs * a1[..., 1])
+    mx, my = moved[:, None, :, 0], moved[:, None, :, 1]
+    rx = cs[..., None] * mx - sn[..., None] * my + tx[..., None] - q[:, None, :, 0]
+    ry = sn[..., None] * mx + cs[..., None] * my + ty[..., None] - q[:, None, :, 1]
+    inlier = (rx * rx + ry * ry <= threshold**2) & w[:, None, :]
+    count = torch.where(sample_ok, torch.sum(inlier, dim=-1), -1)  # (B, R)
+    best = torch.argmax(count, dim=-1)                              # the first best, as jnp.argmax
+    best_inliers = torch.gather(inlier, 1, best[:, None, None].expand(B, 1, inlier.shape[-1]))[:, 0]
+    best_count = torch.gather(count, 1, best[:, None])[:, 0]
+    return torch.where((best_count >= 3)[:, None], best_inliers, True)
+
+
 def _icp_iteration(
     state: _IterState, src, src_mask, tgt, tgt_mask, tgt_normals, *,
-    max_corr_sq, reciprocal, epsilon, error_delta_rel_tol,
+    max_corr_sq, reciprocal, epsilon, error_delta_rel_tol, point_to_line=True,
+    ransac_idx=None, ransac_threshold=0.05,
 ) -> _IterState:
-    """One point-to-line damped Gauss-Newton step for every pair."""
+    """One damped Gauss-Newton step for every pair: point-to-line (one
+    residual a point along the target normal) or point-to-point (two rows
+    a point), with RANSAC rejection of the correspondences first when
+    ransac_idx (B, R, 2) gives its samples."""
     moved = geom.apply(state.transform[:, None, :], src)
     Mn, nn_d2, w = _matches(moved, src_mask, tgt, tgt_mask, max_corr_sq, reciprocal)
     q = torch.einsum("bpq,bqc->bpc", Mn, tgt)
-    n = torch.einsum("bpq,bqc->bpc", Mn, tgt_normals)
+    if ransac_idx is not None:
+        w = w & _ransac_keep(moved, q, w, ransac_idx, ransac_threshold)
     wf = w.to(torch.float32)
 
     err = moved - q
     rp = moved - state.transform[:, None, 0:2]
     drot = torch.stack([-rp[..., 1], rp[..., 0]], dim=-1)
-    r = torch.sum(n * err, dim=-1)
-    J = torch.cat([n, torch.sum(n * drot, dim=-1, keepdim=True)], dim=-1)
-    H = torch.einsum("bpi,bpj->bij", J * wf[..., None], J)
-    g = torch.einsum("bpi,bp->bi", J * wf[..., None], r)
+    if point_to_line:
+        n = torch.einsum("bpq,bqc->bpc", Mn, tgt_normals)
+        r = torch.sum(n * err, dim=-1)
+        J = torch.cat([n, torch.sum(n * drot, dim=-1, keepdim=True)], dim=-1)
+        H = torch.einsum("bpi,bpj->bij", J * wf[..., None], J)
+        g = torch.einsum("bpi,bp->bi", J * wf[..., None], r)
+    else:
+        # Rows J_x = [1, 0, drot_x], J_y = [0, 1, drot_y] on r = moved - q.
+        hxx = torch.sum(wf, dim=-1)
+        hxt = torch.sum(wf * drot[..., 0], dim=-1)
+        hyt = torch.sum(wf * drot[..., 1], dim=-1)
+        htt = torch.sum(wf * torch.sum(drot * drot, dim=-1), dim=-1)
+        zero = torch.zeros_like(hxx)
+        H = torch.stack([
+            torch.stack([hxx, zero, hxt], dim=-1),
+            torch.stack([zero, hxx, hyt], dim=-1),
+            torch.stack([hxt, hyt, htt], dim=-1),
+        ], dim=-2)
+        g = torch.stack([
+            torch.sum(wf * err[..., 0], dim=-1),
+            torch.sum(wf * err[..., 1], dim=-1),
+            torch.sum(wf * torch.sum(drot * err, dim=-1), dim=-1),
+        ], dim=-1)
 
     num_corr = torch.sum(w, dim=-1).to(torch.int32)
     fitness = torch.sum(wf * nn_d2, dim=-1) / torch.clamp(num_corr.to(torch.float32), min=1.0)
@@ -236,6 +300,18 @@ def _icp_iteration(
     return _IterState(new_t, still, Hd, num_corr, fitness)
 
 
+def ransac_samples(params: PoseGraphParams, B: int, P: int, device) -> torch.Tensor:
+    """RANSAC's sample indices for every iteration of one icp_align call
+    on B pairs of P source points: (icp_maximum_iterations, B,
+    ransac_iterations, 2) int32 in [0, P), drawn on the CPU from a
+    torch.Generator seeded 17 (the JAX package's PRNG key; the JAX package
+    draws jax.random.randint(fold_in(key, it), (B, R, 2), 0, P) an
+    iteration instead), then moved to `device`."""
+    gen = torch.Generator().manual_seed(17)
+    shape = (params.icp_maximum_iterations, B, params.ransac_iterations, 2)
+    return torch.randint(0, P, shape, generator=gen, dtype=torch.int32).to(device)
+
+
 def anneal_length(params: PoseGraphParams) -> int:
     """Coarse-to-fine annealing length in iterations (icp_anneal_iters,
     or the legacy 2/3 · max_iterations rule when None)."""
@@ -247,11 +323,13 @@ def anneal_length(params: PoseGraphParams) -> int:
 
 def _icp_align_impl(
     src, src_mask, tgt, tgt_mask, tgt_normals, init_guess, gate_multiplier,
-    params: PoseGraphParams,
+    params: PoseGraphParams, ransac_idx=None,
 ):
     """Plain PyTorch ICP loop (the JAX package's _icp_align_impl as a
     Python loop). Returns (transform, num_corr, fitness, hessian) — the
-    same quantities the kernel's output row carries."""
+    same quantities the kernel's output row carries. With RANSAC on,
+    ransac_idx holds its samples, (iterations, B, R, 2) (default
+    ransac_samples)."""
     B = src.shape[0]
     dev = src.device
     state = _IterState(
@@ -264,6 +342,10 @@ def _icp_align_impl(
     anneal_iters = anneal_length(params)
     max_corr = params.icp_max_correspondence_distance
     annealed = gate_multiplier > 1.0
+    if params.icp_use_ransac_rejection and ransac_idx is None:
+        ransac_idx = ransac_samples(params, B, src.shape[1], dev)
+    modes = dict(point_to_line=params.icp_point_to_line,
+                 ransac_threshold=params.ransac_outlier_rejection_threshold)
     it = 0
     # Early exit once every pair has frozen (annealing pairs are held
     # active through their schedule, so this can only trip after it).
@@ -279,6 +361,7 @@ def _icp_align_impl(
             reciprocal=params.icp_use_reciprocal_correspondences,
             epsilon=params.icp_maximum_transformation_epsilon,
             error_delta_rel_tol=params.icp_error_delta_rel_tol,
+            ransac_idx=None if ransac_idx is None else ransac_idx[it].long(), **modes,
         )
         # Held through the last still-coarse iteration so exit statistics
         # are always taken at the fine gate.
@@ -288,7 +371,8 @@ def _icp_align_impl(
     # gate, as the kernel evaluates them. (The JAX loop reports each pair's
     # statistics from the batch's last iteration: at the final transform
     # for a pair frozen earlier, one step before it for a pair still moving
-    # then — a dependence on the batch this definition drops.)
+    # then — a dependence on the batch this definition drops.) RANSAC takes
+    # the last iteration's samples, as the JAX loop's statistics do.
     final = _icp_iteration(
         state._replace(active=torch.zeros_like(state.active)),
         src, src_mask, tgt, tgt_mask, tgt_normals,
@@ -296,6 +380,7 @@ def _icp_align_impl(
         reciprocal=params.icp_use_reciprocal_correspondences,
         epsilon=params.icp_maximum_transformation_epsilon,
         error_delta_rel_tol=0.0,
+        ransac_idx=None if ransac_idx is None else ransac_idx[it - 1].long(), **modes,
     )
     return state.transform, final.num_corr, final.fitness, final.hessian
 
@@ -346,12 +431,13 @@ def is_censi_mode(params: PoseGraphParams) -> bool:
 def icp_align_plain(
     src, src_mask, tgt, tgt_mask, init_guess, params: PoseGraphParams, *,
     tgt_normals, gate_multiplier, min_correspondences, fitness_threshold,
-    min_overlap, sensor_noise_std,
+    min_overlap, sensor_noise_std, ransac_samples=None,
 ) -> ICPResult:
     """The plain PyTorch version of kernel K1 with its host-side wrapper,
-    on any device (icp_align picks it for CPU tensors)."""
+    on any device (icp_align picks it for CPU tensors, and for the configs
+    K1 does not implement)."""
     transform, num_corr, fitness, hessian = _icp_align_impl(
-        src, src_mask, tgt, tgt_mask, tgt_normals, init_guess, gate_multiplier, params
+        src, src_mask, tgt, tgt_mask, tgt_normals, init_guess, gate_multiplier, params, ransac_samples
     )
     censi = None
     if is_censi_mode(params):
@@ -382,6 +468,7 @@ def icp_align(
     fitness_threshold: float = 0.25,
     min_overlap: float | None = None,
     sensor_noise_std: float | None = None,
+    ransac_samples: torch.Tensor | None = None,
 ) -> ICPResult:
     """Align a batch of source clouds onto target clouds (the JAX
     package's icp_align interface).
@@ -390,15 +477,10 @@ def icp_align(
     bool, init_guess (B, 3) seed
     pose of src in tgt's frame, gate_multiplier (B,) per-pair coarse gate
     (default: the configured coarse multiplier for every pair).
+    ransac_samples (icp_maximum_iterations, B, ransac_iterations, 2)
+    source indices: RANSAC's samples, when it is on (default:
+    ops.icp.ransac_samples' draw).
     """
-    if params.icp_use_ransac_rejection:
-        raise NotImplementedError(
-            "RANSAC correspondence rejection is not ported (ROADMAP.md Queue 1)"
-        )
-    if not params.icp_point_to_line:
-        raise NotImplementedError(
-            "point-to-point ICP is not ported (ROADMAP.md Queue 1)"
-        )
     if tgt_normals is None:
         tgt_normals = estimate_normals(tgt, tgt_mask)
     if sensor_noise_std is None:
@@ -415,10 +497,10 @@ def icp_align(
         min_correspondences=min_correspondences, fitness_threshold=fitness_threshold,
         min_overlap=min_overlap, sensor_noise_std=sensor_noise_std,
     )
-    if src.device.type == "cuda":
+    if src.device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"no ICP path for device {src.device}")
+    if src.device.type == "cuda" and params.icp_point_to_line and not params.icp_use_ransac_rejection:
         from dpg_slam_tpu_torch.ops.icp_cuda import icp_align_cuda
 
         return icp_align_cuda(src, src_mask, tgt, tgt_mask, init_guess, params, **kwargs)
-    if src.device.type != "cpu":
-        raise NotImplementedError(f"no ICP path for device {src.device}")
-    return icp_align_plain(src, src_mask, tgt, tgt_mask, init_guess, params, **kwargs)
+    return icp_align_plain(src, src_mask, tgt, tgt_mask, init_guess, params, ransac_samples=ransac_samples, **kwargs)

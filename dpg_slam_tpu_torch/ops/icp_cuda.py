@@ -179,7 +179,7 @@ def icp_align_cuda(
     min_overlap, sensor_noise_std,
 ) -> icp_mod.ICPResult:
     """ops.icp.icp_align on CUDA tensors through K1 (point-to-line, no
-    RANSAC: icp_align raises for the rest before it gets here)."""
+    RANSAC: icp_align sends the rest to the plain version)."""
     censi = icp_mod.is_censi_mode(params)
     out = run_kernel(*pack(src, src_mask, tgt, tgt_mask, tgt_normals, init_guess, gate_multiplier),
                      params, censi)

@@ -58,14 +58,24 @@ def _chol_inv_tile(D: torch.Tensor) -> torch.Tensor:
 
 
 def spd_solve_plain(H: torch.Tensor, B: torch.Tensor, panel: int | None = None) -> torch.Tensor:
-    """X with H X = B for (..., n, n) SPD H and (..., n, m) B, float32, by
-    the panel-blocked elimination (schur_pallas._eliminate_blocked) at
-    `panel` (default _pick_panel(n))."""
+    """X with H X = B for (n, n) or (S, n, n) SPD H and (n, m) or (S, n, m)
+    B, float32, by the panel-blocked elimination
+    (schur_pallas._eliminate_blocked) at `panel` (default _pick_panel(n)).
+    A batch is solved one system at a time, as the kernel's grid takes
+    one system a program: a batched matmul rounds otherwise than a
+    one-system one, and a system's bits must not depend on its batch."""
     n = H.shape[-1]
     p = panel or _pick_panel(n)
     if n % p != 0:
         raise ValueError(f"panel {p} does not divide n={n}")
-    nb = n // p
+    if H.ndim == 3:
+        return torch.stack([_blocked_solve(h, b, p) for h, b in zip(H, B)])
+    return _blocked_solve(H, B, p)
+
+
+def _blocked_solve(H: torch.Tensor, B: torch.Tensor, p: int) -> torch.Tensor:
+    """spd_solve_plain on one (n, n) system at panel p."""
+    nb = H.shape[-1] // p
     linvs, lbelows = [], []
     trail = H
     for k in range(nb):

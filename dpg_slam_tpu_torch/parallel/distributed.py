@@ -2,17 +2,21 @@
 of dpg_slam_tpu/parallel/distributed.py.
 
 - ``sharded_icp_align``: the batched ICP over a pair axis divisible by the
-  shard count (one kernel launch covers every shard's pairs).
+  shard count; each rank aligns its shards' pairs (one kernel launch on
+  its card) and the rows are gathered.
 - ``distributed_solve``: LM with edge-sharded PCG; the edges are reshaped
-  to (S, E / S), each psum of the JAX package is a sum over the shard
-  dimension, and the replicated priors are folded into every shard scaled
-  by 1 / S. Per-node sums are ordered segment sums (graph/segment.py), so
-  runs on the card repeat to the bit.
+  to (S, E / S), each rank assembles its shards' normal equations and
+  matvec terms, each psum of the JAX package is a gather over the shards
+  and a sum over the shard dimension (mesh.gather_shards), and the
+  replicated priors are folded into every shard scaled by 1 / S. Per-node
+  sums are ordered segment sums (graph/segment.py), so runs on the card
+  repeat to the bit.
 - ``distributed_reoptimize``: the pass-boundary reoptimize (compacted ICP
   sweep, graph rebuild) with the Schur solve (parallel/schur.py) or the
   edge-sharded CG.
 
-A mesh is S shards on one device (parallel/mesh.py).
+A mesh is S shards over the ranks of a process group, or in one process
+(parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from dpg_slam_tpu_torch.config import PoseGraphParams
 from dpg_slam_tpu_torch.graph import factor_graph as fg
 from dpg_slam_tpu_torch.graph.segment import segment_plan, segment_sum
 from dpg_slam_tpu_torch.ops import icp
-from dpg_slam_tpu_torch.parallel.mesh import Mesh
+from dpg_slam_tpu_torch.parallel.mesh import Mesh, gather_shards
 from dpg_slam_tpu_torch.parallel.partition import spatial_blocks
 from dpg_slam_tpu_torch.parallel.schur import full_graph, robust_between_error, schur_solve
 
@@ -40,23 +44,36 @@ _log = logging.getLogger("dpg_slam_tpu_torch.parallel")
 def sharded_icp_align(
     mesh: Mesh, src, src_mask, tgt, tgt_mask, init_guess, params: PoseGraphParams, **kwargs,
 ) -> icp.ICPResult:
-    """Batched ICP with the pair axis split over the mesh's shards. The
+    """Batched ICP with the pair axis split over the mesh's shards: each
+    rank aligns the pairs of its shards and every rank gets all rows. The
     pair count must be divisible by the mesh size (pad with masked pairs
-    otherwise)."""
+    otherwise). A pair's row does not depend on its batch; RANSAC's
+    samples are drawn for all B pairs and sliced, as one call would."""
     B = src.shape[0]
     if B % mesh.size != 0:
         raise ValueError(f"pair count {B} not divisible by mesh size {mesh.size}")
-    return icp.icp_align(src, src_mask, tgt, tgt_mask, init_guess, params, **kwargs)
+    if mesh.group is None:
+        return icp.icp_align(src, src_mask, tgt, tgt_mask, init_guess, params, **kwargs)
+    s0, s1 = mesh.shards
+    lo, hi = s0 * B // mesh.size, s1 * B // mesh.size
+    if params.icp_use_ransac_rejection and kwargs.get("ransac_samples") is None:
+        kwargs["ransac_samples"] = icp.ransac_samples(params, B, src.shape[1], src.device)
+    kwargs = {k: (v[:, lo:hi] if k == "ransac_samples" else v[lo:hi]) if torch.is_tensor(v) else v
+              for k, v in kwargs.items()}
+    res = icp.icp_align(src[lo:hi], src_mask[lo:hi], tgt[lo:hi], tgt_mask[lo:hi], init_guess[lo:hi], params,
+                        **kwargs)
+    return icp.ICPResult(*(gather_shards(mesh, x) for x in res))
 
 
 def _local_normal_contrib(poses, g_loc: fg.FactorGraph, edge_mask_l, S: int, plan, pJ, pr, robust_delta=None):
-    """Per-shard normal equations from each shard's own edges and the
-    replicated priors' 1 / S shares (pJ, pr already masked): diag
-    (S, N, 3, 3), off (S, El, 3, 3), rhs (S, N, 3). plan sums the `i`
-    ends, the `j` ends and then the priors of every shard into its node
-    slots (shard s at offset s·N)."""
+    """Per-shard normal equations of this rank's Sl shards from each
+    shard's own edges (g_loc, edge_mask_l (Sl, El)) and the replicated
+    priors' 1 / S shares (pJ, pr already masked): diag (Sl, N, 3, 3), off
+    (Sl, El, 3, 3), rhs (Sl, N, 3). plan sums the `i` ends, the `j` ends
+    and then the priors of every local shard into its node slots (local
+    shard s at offset s·N)."""
     N = poses.shape[0]
-    El = edge_mask_l.shape[1]
+    Sl, El = edge_mask_l.shape
     er, Ji, Jj = fg._between_residual_jac(poses, g_loc)
     em = edge_mask_l.reshape(-1).to(poses.dtype)
     if robust_delta is not None:
@@ -65,13 +82,13 @@ def _local_normal_contrib(poses, g_loc: fg.FactorGraph, edge_mask_l, S: int, pla
     Jj = Jj * em[:, None, None]
     er = er * em[:, None]
     inv_n = 1.0 / S
-    prior_h = (inv_n * (pJ.transpose(-1, -2) @ pJ))[None].expand(S, -1, -1, -1).reshape(-1, 3, 3)
-    prior_g = (inv_n * torch.einsum("pba,pb->pa", pJ, pr))[None].expand(S, -1, -1).reshape(-1, 3)
+    prior_h = (inv_n * (pJ.transpose(-1, -2) @ pJ))[None].expand(Sl, -1, -1, -1).reshape(-1, 3, 3)
+    prior_g = (inv_n * torch.einsum("pba,pb->pa", pJ, pr))[None].expand(Sl, -1, -1).reshape(-1, 3)
     diag = segment_sum(torch.cat([Ji.transpose(-1, -2) @ Ji, Jj.transpose(-1, -2) @ Jj, prior_h]), plan)
     rhs = segment_sum(torch.cat([torch.einsum("eba,eb->ea", Ji, er), torch.einsum("eba,eb->ea", Jj, er), prior_g]),
                       plan)
-    off = (Ji.transpose(-1, -2) @ Jj).view(S, El, 3, 3)
-    return diag.view(S, N, 3, 3), off, rhs.view(S, N, 3)
+    off = (Ji.transpose(-1, -2) @ Jj).view(Sl, El, 3, 3)
+    return diag.view(Sl, N, 3, 3), off, rhs.view(Sl, N, 3)
 
 
 def distributed_solve(
@@ -106,50 +123,57 @@ def distributed_solve(
         raise ValueError(f"poses on {poses.device}, mesh on {mesh.device}")
     dt, dev = poses.dtype, poses.device
     El = E // S
+    s0, s1 = mesh.shards
+    Sl = s1 - s0
     g = full_graph(prior_idx, prior_val, prior_sqrt_info, prior_mask,
                    edge_idx, edge_meas, edge_sqrt_info, edge_mask)
-    edge_mask_l = edge_mask.view(S, El)
-    emf = edge_mask.to(dt)[:, None]
+    # This rank's shards' edges.
+    mine = slice(s0 * El, s1 * El)
+    g_loc = g._replace(edge_idx=g.edge_idx[mine], edge_meas=g.edge_meas[mine], edge_sqrt_info=g.edge_sqrt_info[mine],
+                       num_edges=torch.tensor(Sl * El, dtype=torch.int32, device=dev))
+    edge_mask_loc = edge_mask[mine]
+    edge_mask_l = edge_mask_loc.view(Sl, El)
+    emf = edge_mask_loc.to(dt)[:, None]
     pm = prior_mask.to(dt)
-    base = (torch.arange(S, device=dev) * N).repeat_interleave(El)
-    i_loc = base + g.edge_idx[:, 0].long()
-    j_loc = base + g.edge_idx[:, 1].long()
-    i_glob = g.edge_idx[:, 0].long()
-    j_glob = g.edge_idx[:, 1].long()
-    p_loc = ((torch.arange(S, device=dev) * N)[:, None] + g.prior_idx.long()).reshape(-1)
+    base = (torch.arange(Sl, device=dev) * N).repeat_interleave(El)
+    i_glob = g_loc.edge_idx[:, 0].long()
+    j_glob = g_loc.edge_idx[:, 1].long()
+    i_loc = base + i_glob
+    j_loc = base + j_glob
+    p_loc = ((torch.arange(Sl, device=dev) * N)[:, None] + g.prior_idx.long()).reshape(-1)
     # The index sets are fixed for the solve: sorted once here, masked
     # slots dropped.
-    i_live, j_live = (torch.where(edge_mask, x, S * N) for x in (i_loc, j_loc))
-    p_live = torch.where(prior_mask.repeat(S), p_loc, S * N)
-    normal_plan = segment_plan(torch.cat([i_live, j_live, p_live]), S * N)
-    matvec_plan = segment_plan(torch.cat([i_live, j_live]), S * N)
+    i_live, j_live = (torch.where(edge_mask_loc, x, Sl * N) for x in (i_loc, j_loc))
+    p_live = torch.where(prior_mask.repeat(Sl), p_loc, Sl * N)
+    normal_plan = segment_plan(torch.cat([i_live, j_live, p_live]), Sl * N)
+    matvec_plan = segment_plan(torch.cat([i_live, j_live]), Sl * N)
     eye = torch.eye(3, dtype=dt, device=dev)
 
     def robust_error(p):
-        er, _, _ = fg._between_residual_jac(p, g)
+        er, _, _ = fg._between_residual_jac(p, g_loc)
         pr, _ = fg._prior_residual_jac(p, g)
         pr = pr * pm[:, None]
         per_shard = torch.stack([
-            robust_between_error(e, robust_delta) for e in (er * emf).view(S, El, 3)
+            robust_between_error(e, robust_delta) for e in (er * emf).view(Sl, El, 3)
         ])
-        return 0.5 * torch.sum(pr * pr) + per_shard.sum()
+        return 0.5 * torch.sum(pr * pr) + gather_shards(mesh, per_shard).sum()
 
     def one_gn_step(p, damping_c):
         pr, pJ = fg._prior_residual_jac(p, g)
         diag_l, off_l, rhs_l = _local_normal_contrib(
-            p, g, edge_mask_l, S, normal_plan, pJ * pm[:, None, None], pr * pm[:, None], robust_delta)
-        diag = diag_l.sum(0)
-        rhs = rhs_l.sum(0)
+            p, g_loc, edge_mask_l, S, normal_plan, pJ * pm[:, None, None], pr * pm[:, None], robust_delta)
+        diag = gather_shards(mesh, diag_l).sum(0)
+        rhs = gather_shards(mesh, rhs_l).sum(0)
         diag = torch.where(node_mask[:, None, None], diag, eye)
         rhs = torch.where(node_mask[:, None], rhs, 0.0)
         diag = diag + damping_c * eye
         Minv = geom.inv_sym3(diag)
-        off = off_l.reshape(E, 3, 3)
+        off = off_l.reshape(Sl * El, 3, 3)
 
         def matvec(v):
             loc = segment_sum(torch.cat([emf * torch.einsum("eab,eb->ea", off, v[j_glob]),
                                          emf * torch.einsum("eba,eb->ea", off, v[i_glob])]), matvec_plan)
-            return torch.einsum("nab,nb->na", diag, v) + loc.view(S, N, 3).sum(0)
+            return torch.einsum("nab,nb->na", diag, v) + gather_shards(mesh, loc.view(Sl, N, 3)).sum(0)
 
         def precond(v):
             return torch.einsum("nab,nb->na", Minv, v)

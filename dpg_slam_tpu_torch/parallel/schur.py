@@ -6,8 +6,10 @@ eliminates every shard's INTERIOR nodes with a dense Cholesky, reduces onto
 the small SEPARATOR system (block boundaries and loop-closure endpoints),
 sums the reduced systems over the shards, solves that replicated, and
 back-substitutes the interiors. The JAX package runs the per-shard body
-under ``shard_map`` with one ``psum``; here it runs batched over a leading
-shard dimension (parallel/mesh.py) and the psum is a sum over it.
+under ``shard_map`` with one ``psum``; here each rank runs its shards'
+bodies batched over a leading shard dimension (parallel/mesh.py), the
+psum is a gather of the reduced systems over the shards and a sum over
+that dimension, and the interior steps are gathered the same way.
 
 Factor routing: a factor with an interior endpoint belongs to the shard
 owning that node; a factor between two separators to the shard of its
@@ -16,7 +18,7 @@ can check that the cap held (overflowing separators are dropped from the
 reduced system).
 
 The interior elimination is ops/schur.spd_solve (kernel K2 on the card)
-for all S shards in one call when ``pallas_elimination`` is set, else
+for a rank's shards in one call when ``pallas_elimination`` is set, else
 torch.linalg's Cholesky, as the JAX package's XLA branch. The reduced
 separator solve is torch.linalg in both.
 
@@ -35,7 +37,7 @@ from dpg_slam_tpu_torch import geom
 from dpg_slam_tpu_torch.graph import factor_graph as fg
 from dpg_slam_tpu_torch.graph.segment import segment_plan, segment_sum
 from dpg_slam_tpu_torch.ops import schur as schur_ops
-from dpg_slam_tpu_torch.parallel.mesh import Mesh
+from dpg_slam_tpu_torch.parallel.mesh import Mesh, gather_shards
 
 __all__ = ["schur_solve"]
 
@@ -117,6 +119,9 @@ def schur_solve(
     dt = poses.dtype
     idx = torch.arange(N, device=dev)
     shards = torch.arange(S, device=dev)
+    s0, s1 = mesh.shards
+    Sl = s1 - s0
+    local = shards[s0:s1]  # this rank's shards
 
     if block_assign is None:
         block = idx // C
@@ -152,12 +157,12 @@ def schur_solve(
     int_j = edge_mask & ~is_sep[ej]
     edge_owner = torch.where(int_i, block[ei], torch.where(int_j, block[ej], block[ei]))
     prior_owner = block[pidx]
-    mine_e = (edge_owner[None, :] == shards[:, None]) & edge_mask      # (S, E)
-    mine_p = (prior_owner[None, :] == shards[:, None]) & prior_mask    # (S, Pr)
+    mine_e = (edge_owner[None, :] == local[:, None]) & edge_mask       # (Sl, E)
+    mine_p = (prior_owner[None, :] == local[:, None]) & prior_mask     # (Sl, Pr)
 
     def int_slot(n):
-        """(S, len(n)) interior slot of each node in each shard (C = none)."""
-        ok = (block[n][None, :] == shards[:, None]) & (~is_sep[n] & node_mask[n] & (int_rank[n] < C))[None, :]
+        """(Sl, len(n)) interior slot of each node in each local shard (C = none)."""
+        ok = (block[n][None, :] == local[:, None]) & (~is_sep[n] & node_mask[n] & (int_rank[n] < C))[None, :]
         return torch.where(ok, int_rank[n][None, :], C)
 
     li, lj, lp = int_slot(ei), int_slot(ej), int_slot(pidx)
@@ -167,22 +172,22 @@ def schur_solve(
     my_valid = slot_map < N                                        # (S, C)
     my_nodes = torch.clamp(slot_map, max=N - 1)
     int_ok = my_valid & node_mask[my_nodes] & ~is_sep[my_nodes]    # (S, C)
-    int_valid = int_ok.repeat_interleave(3, dim=1)                 # (S, 3C)
+    int_valid = int_ok[s0:s1].repeat_interleave(3, dim=1)          # (Sl, 3C)
     sep_valid = torch.zeros((sep_cap + 1,), dtype=torch.bool, device=dev)
     sep_valid[sep_slot[sep_ok]] = True
     sv = sep_valid[:sep_cap].repeat_interleave(3)
 
     C1, K1 = C + 1, sep_cap + 1
-    s_col = shards[:, None]
+    s_col = (local - s0)[:, None]
 
-    rows = dict(ii=S * C1 * C1, ss=S * K1 * K1, is_=S * C1 * K1, bi=S * C1, bs=S * K1)
+    rows = dict(ii=Sl * C1 * C1, ss=Sl * K1 * K1, is_=Sl * C1 * K1, bi=Sl * C1, bs=Sl * K1)
 
     def routes(a_int, a_sep, b_int, b_sep, mine):
         """Where one factor set's J_a^T J_b products (and gradients) go,
-        per target block tensor: the flat keys of each (S, F) product, in
+        per target block tensor: the flat keys of each (Sl, F) product, in
         the order block_values lists them. Endpoints a, b are interior
         slots (C = none) or separator slots (sep_cap = none). A product of
-        a factor a shard does not own (mine (S, F) false: an exact zero)
+        a factor a shard does not own (mine (Sl, F) false: an exact zero)
         is dropped."""
         a_sep, b_sep = a_sep[None, :].expand_as(a_int), b_sep[None, :].expand_as(b_int)
 
@@ -203,7 +208,7 @@ def schur_solve(
         )
 
     def block_values(Ja, Jb, r, w):
-        """The (S, F) products of one factor set (weights w (S, F)) per
+        """The (Sl, F) products of one factor set (weights w (Sl, F)) per
         target, in the order of routes."""
         Hab = torch.einsum("fba,fbc->fac", Ja, Jb)[None] * w[..., None, None] ** 2
         Haa = torch.einsum("fba,fbc->fac", Ja, Ja)[None] * w[..., None, None] ** 2
@@ -245,18 +250,18 @@ def schur_solve(
             for t in ("ii", "ss", "is_", "bi", "bs")
         )
 
-        Hii = _blocks(A_ii.view(S, C1, C1, 3, 3), C, C)
-        His = _blocks(A_is.view(S, C1, K1, 3, 3), C, sep_cap)
-        Hss = _blocks(A_ss.view(S, K1, K1, 3, 3), sep_cap, sep_cap)
-        gi = b_i.view(S, C1, 3)[:, :C].reshape(S, 3 * C)
-        gs = b_s.view(S, K1, 3)[:, :sep_cap].reshape(S, 3 * sep_cap)
+        Hii = _blocks(A_ii.view(Sl, C1, C1, 3, 3), C, C)
+        His = _blocks(A_is.view(Sl, C1, K1, 3, 3), C, sep_cap)
+        Hss = _blocks(A_ss.view(Sl, K1, K1, 3, 3), sep_cap, sep_cap)
+        gi = b_i.view(Sl, C1, 3)[:, :C].reshape(Sl, 3 * C)
+        gs = b_s.view(Sl, K1, 3)[:, :sep_cap].reshape(Sl, 3 * sep_cap)
 
         Hii = torch.where(int_valid[:, :, None] & int_valid[:, None, :], Hii, 0.0)
         Hii = Hii + torch.diag_embed(torch.where(int_valid, damping_c, 1.0))
         His = torch.where(int_valid[:, :, None], His, 0.0)
         gi = torch.where(int_valid, gi, 0.0)
 
-        # Interior elimination of all shards at once.
+        # Interior elimination of this rank's shards at once.
         if pallas_elimination:
             sol = schur_ops.spd_solve(Hii, torch.cat([His, gi[:, :, None]], dim=2))
             W, u = sol[:, :, :-1], sol[:, :, -1]
@@ -265,8 +270,8 @@ def schur_solve(
             W = torch.cholesky_solve(His, L)
             u = torch.cholesky_solve(gi[:, :, None], L)[:, :, 0]
         HisT = His.transpose(1, 2)
-        S_red = (Hss - HisT @ W).sum(0)
-        g_red = (gs - (HisT @ u[:, :, None])[:, :, 0]).sum(0)
+        S_red = gather_shards(mesh, Hss - HisT @ W).sum(0)
+        g_red = gather_shards(mesh, gs - (HisT @ u[:, :, None])[:, :, 0]).sum(0)
 
         S_red = torch.where(sv[:, None] & sv[None, :], S_red, 0.0)
         S_red = S_red + torch.diag(torch.where(sv, damping_c, 1.0))
@@ -274,7 +279,7 @@ def schur_solve(
         Ls, _ = torch.linalg.cholesky_ex(S_red)
         d_sep = torch.cholesky_solve(g_red[:, None], Ls)[:, 0]                # (3 sep_cap,)
 
-        d_int = u - (W @ d_sep[None, :, None])[:, :, 0]                       # (S, 3C)
+        d_int = gather_shards(mesh, u - (W @ d_sep[None, :, None])[:, :, 0])  # (S, 3C)
         delta = torch.zeros((N, 3), dtype=dt, device=dev)
         d_int = torch.where(int_ok[:, :, None], d_int.view(S, C, 3), 0.0)
         delta[my_nodes[my_valid]] = d_int[my_valid]

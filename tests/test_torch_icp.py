@@ -162,17 +162,6 @@ def test_censi_covariance_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3, atol=1e-12)
 
 
-@pytest.mark.parametrize(
-    "name", ["ransac", "point_to_point"],
-)
-def test_unported_configs_raise(name):
-    inp, _ = _batch(B=1)
-    pg = TorchPG(icp_use_ransac_rejection=True) if name == "ransac" else TorchPG(icp_point_to_line=False)
-    t = {k: torch.from_numpy(v) for k, v in inp.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ticp.icp_align(t["src"], t["src_mask"], t["tgt"], t["tgt_mask"], t["init_guess"], pg)
-
-
 # --- the five cases of test_icp_pallas.py, plain port vs Pallas (interpret) ---
 
 def _check_vs_pallas(got, want, cov_atol):

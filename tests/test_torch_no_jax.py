@@ -2,7 +2,8 @@
 chip_smoke.py) imports jax or dpg_slam_tpu, the package runs keyframes, a
 second pass with DPG change detection and its map layers, the offline
 sequence mode, the session-batched mode, the online server, the
-multipass batched mode and the experiment runner (with its logs and
+multipass batched mode, the ICP modes K1 does not implement (RANSAC
+rejection, point-to-point) and the experiment runner (with its logs and
 checkpoint) in a process where jax cannot be imported, and chip_smoke.py
 refuses to run without a CUDA card."""
 
@@ -33,7 +34,7 @@ def test_no_source_imports_jax():
     assert {PKG / "dpg" / "change_detection.py", PKG / "ops" / "raster.py", PKG / "graph" / "segment.py",
             PKG / "run.py", PKG / "io" / "logs.py", PKG / "io" / "suites.py", PKG / "io" / "rosbag1.py",
             PKG / "io" / "convert.py", PKG / "viz.py", PKG / "utils" / "profiling.py",
-            PKG / "baselines" / "serial_cpu.py"} <= set(files)
+            PKG / "baselines" / "serial_cpu.py", PKG / "parallel" / "multihost.py"} <= set(files)
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "dpg_slam_tpu"}
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
@@ -104,6 +105,17 @@ plain, plain_counts = batch.process_sessions_multipass(cfg, lane_passes, run_dpg
 from dpg_slam_tpu_torch import scan
 assert plain_counts == multi_counts and not ((plain.labels == scan.ADDED) | (plain.labels == scan.REMOVED)).any()
 
+# The ICP modes kernel K1 does not implement: RANSAC rejection and point-to-point.
+import dataclasses
+from dpg_slam_tpu_torch.ops import icp
+pts = seq.scans[0][:64]
+cloud = torch.stack([torch.linspace(-3, 3, 64), torch.as_tensor(pts, dtype=torch.float32).clamp(0, 5)], -1)
+src, tgt = cloud[None, ::2].contiguous(), cloud[None]
+for mode in (dict(icp_use_ransac_rejection=True), dict(icp_point_to_line=False)):
+    res = icp.icp_align(src, torch.ones((1, 32), dtype=torch.bool), tgt, torch.ones((1, 64), dtype=torch.bool),
+                        torch.zeros((1, 3)), dataclasses.replace(cfg.pose_graph, **mode))
+    assert np.isfinite(res.transform.numpy()).all()
+
 # The experiment runner, with its logs and checkpoint, and a replay of the logs.
 import contextlib, io, json, pathlib, tempfile
 from dpg_slam_tpu_torch import run
@@ -120,7 +132,7 @@ assert not any(m == "jax" or m.startswith(("jax.", "dpg_slam_tpu.")) or m == "dp
                for m in sys.modules if sys.modules[m] is not None)
 print("three keyframes", int(eng.state.graph.num_edges), "dpg layers", len(layers["active_static"]),
       "batched lanes", counts, "server lanes", [srv.num_nodes(i) for i in range(2)], "multipass lanes", multi_counts,
-      "runner keyframes", summary["passes"][0]["keyframes"])
+      "runner keyframes", summary["passes"][0]["keyframes"], "icp modes ok")
 """
 
 
@@ -141,6 +153,7 @@ def test_port_runs_with_jax_blocked():
     assert "server lanes" in proc.stdout
     assert "multipass lanes" in proc.stdout
     assert "runner keyframes" in proc.stdout
+    assert "icp modes ok" in proc.stdout
 
 
 def _assert_refused(proc):

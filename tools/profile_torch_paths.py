@@ -13,7 +13,9 @@ session-batched mode at chip_smoke.py phase 9's configuration (16
 simulated sessions of 3 office laps), one DPG step on bench_assets/session,
 phase 10d's process_sequence with DPG, the multipass batched mode at
 chip_smoke.py phase 11's configuration of record (8 lanes x 2 passes) and
-one lane-axis DPG step on the 8 lanes at the end of that run, and the
+one lane-axis DPG step on the 8 lanes at the end of that run, the pass
+boundary of those 8 lanes at the end of pass 0 (batched_increment_pass
+with "dense" and "dense_pallas", beside the 8 engine reoptimizes), and the
 online server at chip_smoke.py phase 12's configuration (phase 9's
 sessions, 300 ticks, policy (0.5, 8)), and the experiment runner of
 chip_smoke.py phase 13 (run.run at its default config: the gdc suite
@@ -85,6 +87,39 @@ def lane_dpg_state():
     return cfg, run_multipass()[0]
 
 
+@functools.cache
+def pass0_states():
+    """The multipass configuration of record's stacked states at the end
+    of pass 0 (chip_smoke.py phase 11e's input)."""
+    cfg, lanes = multipass_inputs()
+    states, _ = cs.batch_mod.process_sessions_multipass(cfg, [passes[:1] for passes in lanes],
+                                                        solve_stride=cs.MULTI_STRIDE,
+                                                        solve_gn_iterations=cs.MULTI_GN, device=cs.DEVICE)
+    return cfg, states
+
+
+def run_increment_pass(method: str = "dense"):
+    """batched_increment_pass on every lane at once (one K1 sweep, one
+    lane-axis LM), ending in a sync."""
+    cfg, states = pass0_states()
+    out = cs.batch_mod.batched_increment_pass(cfg, cs.clone_states(states), method)
+    torch.cuda.synchronize()
+    return out
+
+
+def run_engine_reoptimizes():
+    """The same pass boundary as 8 engine reoptimizes, one a lane."""
+    cfg, states = pass0_states()
+    engines = []
+    for i in range(states.poses.shape[0]):
+        eng = cs.eng_mod.DpgSlamEngine(cfg, cs.DEVICE)
+        eng.state = cs.batch_mod.session_state(states, i)
+        eng.increment_pass()
+        engines.append(eng)
+    torch.cuda.synchronize()
+    return engines
+
+
 def run_server():
     """The server over phase 12's ticks at its quality policy, ending in
     a sync; returns the server."""
@@ -122,6 +157,9 @@ PATHS = {
     "offline_dpg": lambda: cs.run_dpg_offline(*dpg_inputs(), True),
     "multipass_record": run_multipass,
     "dpg_step_8_lanes": run_lane_dpg_step,
+    "increment_pass_8_lanes": run_increment_pass,
+    "increment_pass_8_lanes_dense_pallas": lambda: run_increment_pass("dense_pallas"),
+    "engine_reoptimize_8_lanes": run_engine_reoptimizes,
     "server_record": run_server,
     "runner_gdc_offline": lambda: run_runner("--suite", "gdc", "--offline"),
     "runner_b21_online": lambda: run_runner("--suite", str(cs.B21_SUITE)),
