@@ -123,15 +123,30 @@ committed fixtures (1024 beams, 256 ICP points, K = 8, 30 ICP iterations,
                  3's keyframe path with RANSAC rejection, then with
                  point-to-point ICP (the plain ICP on the card), card
                  against CPU, K1 launched 0 times
+ 15 scaling      python -m dpg_slam_tpu_torch.bench_scaling in-process on
+                 the card (bench_scaling.run): 15a the edge-sharded CG and
+                 the Schur rows at 4,096 nodes, mesh sizes 1, 2, 4 and 8 on
+                 the one card, 3 timed repeats a row, every row printed
+                 with the card's name and power limit; the card's FP32
+                 matmul rate, 1 GiB copy rate and one op's issue time
+                 beside bench_scaling.CHIP; the interior Cholesky and
+                 cholesky_solve alone at each mesh size; 15b the
+                 mesh-8 row of each family rerun on the CPU at the card's
+                 budget (poses within 1e-2 m / rad, separators and
+                 converged_lm_iters equal, max_err_m within 5e-3); 15c
+                 every row's repeats equal to the bit; 15d K1 and K2
+                 launched 0 times. A row above --tol after budget 40 is
+                 printed, not gated; wall clock across cards needs several
+                 cards
 
 Repeats: the reoptimize (phase 5), 2b's dense_pallas reoptimize capture,
 9b's batched lanes and process_sequence runs, 11e's
-batched_increment_pass and engine reoptimizes and 14a's
-batched_increment_pass with both methods each run more than once and
-must give the same bits (the pose-graph sums are ordered segment sums);
-each prints a "repeat" line.
+batched_increment_pass and engine reoptimizes, 14a's
+batched_increment_pass with both methods and 15c's timed rows each run
+more than once and must give the same bits (the pose-graph sums are
+ordered segment sums); each prints a "repeat" line.
 
-Each path phase (3-14) runs with the kernels' launch counts set to 0 just
+Each path phase (3-15) runs with the kernels' launch counts set to 0 just
 before it and read just after. Each phase prints one JSON line; any failed
 check raises, so the exit code is non-zero. The last lines are the
 kernels' record, the card's nvidia-smi line and {"ok": true, "device":
@@ -161,6 +176,7 @@ import torch
 
 import dpg_slam_tpu_torch  # noqa: F401  (sets the float32 matmul policy)
 from dpg_slam_tpu_torch import batch as batch_mod
+from dpg_slam_tpu_torch import bench_scaling
 from dpg_slam_tpu_torch import engine as eng_mod
 from dpg_slam_tpu_torch import run as run_mod
 from dpg_slam_tpu_torch import scan
@@ -170,7 +186,7 @@ from dpg_slam_tpu_torch.graph import factor_graph as fg
 from dpg_slam_tpu_torch.io import dataset
 from dpg_slam_tpu_torch.io import logs as log_io
 from dpg_slam_tpu_torch.ops import _nvcc, icp, icp_cuda, schur, schur_cuda
-from dpg_slam_tpu_torch.parallel import distributed_reoptimize, make_mesh
+from dpg_slam_tpu_torch.parallel import distributed_reoptimize, distributed_solve, make_mesh
 from dpg_slam_tpu_torch.parallel.distributed import separator_cap
 from dpg_slam_tpu_torch.parallel.partition import spatial_blocks
 from dpg_slam_tpu_torch.parallel.schur import schur_solve
@@ -311,7 +327,7 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32_INSTR = 128 * 132 * 1.98e9
 
 K1, K2 = "icp_point_to_line", "spd_solve"
-# Launches on the paths (phases 3-14), summed over the phases.
+# Launches on the paths (phases 3-15), summed over the phases.
 LAUNCHED = {K1: 0, K2: 0}
 
 
@@ -2320,6 +2336,138 @@ def phase14(cap, cfg):
     return k2_lanes
 
 
+# --- phase 15: the scaling harness ----------------------------------------------
+
+# bench_scaling at the JAX harness's reference scale: the 4,096-node graphs,
+# mesh sizes 1-8, 3 timed repeats a row after an untimed one.
+SCALING_NODES = 4096
+SCALING_ARGV = ["--nodes", str(SCALING_NODES), "--mesh-sizes", "1", "2", "4", "8", "--repeats", "3"]
+# 15b: the mesh-8 rows rerun on the CPU at the card's budget.
+SCALING_POSE_TOL = 1e-2
+SCALING_ERR_TOL = 5e-3
+
+
+def card_rates() -> dict:
+    """What phase 15 measures of the card beside bench_scaling.CHIP: FP32
+    flop/s of an 8,192² matmul (TF32 off; CUDA events), HBM bytes/s of a
+    1 GiB copy (read and write counted; CUDA events), and one tiny device
+    op's issue time, back to back (host clock between syncs)."""
+    n = 8192
+    a = torch.randn(n, n, device=DEVICE)
+    b = torch.randn(n, n, device=DEVICE)
+    mm_ms = cuda_ms(lambda: a @ b, 10)
+    del a, b
+    x = torch.empty(2**28, device=DEVICE)
+    y = torch.empty_like(x)
+    copy_ms = cuda_ms(lambda: y.copy_(x), 20)
+    del x, y
+    t = torch.zeros(12, device=DEVICE)
+    for _ in range(200):
+        t.add_(1.0)
+    reps = 5000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        t.add_(1.0)
+    torch.cuda.synchronize()
+    return dict(fp32_flops=2 * n**3 / (mm_ms / 1e3), hbm_bytes_s=2 * 2**28 * 4 / (copy_ms / 1e3),
+                op_issue_s=(time.perf_counter() - t0) / reps)
+
+
+def interior_factor_ms() -> dict:
+    """The Schur rows' interior elimination alone at each mesh size S, on S
+    SPD systems of 3·4,096 / S unknowns (CUDA events): torch.linalg's
+    cholesky_ex batched as schur_solve calls it and one system at a time,
+    and the batched cholesky_solve of the separator columns (3·sep_cap,
+    sep_cap = max(8·S, 16)) as schur_solve calls it."""
+    out = {}
+    for S in (1, 2, 4, 8):
+        n = 3 * SCALING_NODES // S
+        A = torch.randn(S, n, 64, device=DEVICE)
+        H = A @ A.transpose(1, 2) + n * torch.eye(n, device=DEVICE)
+        L = torch.linalg.cholesky_ex(H)[0]
+        B = torch.randn(S, n, 3 * max(8 * S, 16), device=DEVICE)
+        out[S] = dict(n=n, factor_batched_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(H), 3),
+                      factor_one_at_a_time_ms=cuda_ms(lambda: [torch.linalg.cholesky_ex(h) for h in H], 3),
+                      solve_batched_ms=cuda_ms(lambda: torch.cholesky_solve(B, L), 3))
+        del A, H, L, B
+    return out
+
+
+def scaling_cpu_rerun(family: str, mesh: int, budget: int) -> dict:
+    """Phase 15b: one row's solve with the port's solvers on the CPU at the
+    card's budget, on the same graph (built on the CPU, as on the card)."""
+    N = SCALING_NODES
+    if family == "cg":
+        g, init, mask, gt = bench_scaling.build_big_graph(N, N, device="cpu")
+    else:
+        g, init, mask, gt = bench_scaling.build_big_graph(N, N, closures_per_node=0, seed=1, device="cpu")
+    factors = (g.prior_idx, g.prior_val, g.prior_sqrt_info, g.prior_mask,
+               g.edge_idx, g.edge_meas, g.edge_sqrt_info, g.edge_mask)
+    m = make_mesh(mesh, "cpu")
+    out = {}
+    if family == "cg":
+        poses = distributed_solve(m, init, mask, *factors, max_iterations=budget)
+    else:
+        sep_cap = max(8 * mesh, 16)
+        poses, out["separators"], _ = schur_solve(m, init, mask, *factors, sep_cap=sep_cap, max_iterations=budget)
+        out["converged_lm_iters"] = schur_solve(m, init, mask, *factors, sep_cap=sep_cap, max_iterations=10,
+                                                rel_tol=1e-5)[2]
+    out["max_err_m"] = float(np.linalg.norm(poses[:N, :2].numpy() - gt[:, :2], axis=1).max())
+    return dict(poses=poses, **out)
+
+
+def scaling_phase():
+    """Phase 15: python -m dpg_slam_tpu_torch.bench_scaling in-process on
+    the card (15a, every row printed with the card's name and power limit,
+    and the card's measured rates beside CHIP's); 15b the mesh-8 row of
+    each family on the CPU at the card's budget; 15c each timed row's
+    repeats equal to the bit. The caller checks 15d (no K1 / K2 launch)."""
+    marks = [time.perf_counter()]
+    results, solves, _ = bench_scaling.run(bench_scaling.parse_args(SCALING_ARGV))
+    marks.append(time.perf_counter())
+    for family, key in (("cg", "distributed_solve"), ("schur", "schur_solve_chain")):
+        for row in results[key]:
+            emit("scaling_row", family=family, device=results["device"], nodes=results["nodes"], **row,
+                 above_tol=row["max_err_m"] > 0.03)
+    rates = card_rates()
+    chip = bench_scaling.CHIP
+    emit("scaling_chip", device=results["device"],
+         fp32_flops=dict(measured=rates["fp32_flops"], chip=chip["flops"]),
+         hbm_bytes_s=dict(measured=rates["hbm_bytes_s"], chip=chip["hbm_bw"]),
+         collective_latency_s=dict(measured_op_issue=rates["op_issue_s"], chip=chip["ici_latency_s"]),
+         nvlink_bytes_s=dict(measured=None, chip=chip["ici_bw"]),
+         note="NVLink and a collective across cards need several cards: not measured on one")
+    emit("scaling_interior_factor", device=results["device"], ms=interior_factor_ms())
+    emit("scaling_crossover", device=results["device"],
+         winners={f"{r['nodes']}/{r['shards']}": r["winner"] for r in results["crossover"]},
+         cg_latency_floor_ms=results["crossover"][0]["cg_latency_floor_ms"])
+    for (family, mesh), outs in solves.items():
+        check_repeats(f"15c {family} mesh {mesh}", [[p] for p in outs])
+    marks.append(time.perf_counter())
+    failed = []
+    for family, key in (("cg", "distributed_solve"), ("schur", "schur_solve_chain")):
+        row = next(r for r in results[key] if r["mesh"] == 8)
+        cpu = scaling_cpu_rerun(family, 8, row["gn_budget"])
+        counts = {k: (row[k], int(cpu[k])) for k in ("separators", "converged_lm_iters") if k in cpu}
+        rec = dict(family=family, mesh=8, gn_budget=row["gn_budget"],
+                   max_pose_diff=pose_diff(solves[family, 8][0].cpu(), cpu["poses"]), pose_bound=SCALING_POSE_TOL,
+                   max_err_m=row["max_err_m"], cpu_max_err_m=cpu["max_err_m"], err_bound=SCALING_ERR_TOL, **counts)
+        emit("scaling_cpu", **rec)
+        if (rec["max_pose_diff"] > SCALING_POSE_TOL or abs(row["max_err_m"] - cpu["max_err_m"]) > SCALING_ERR_TOL
+                or any(card != host for card, host in counts.values())):
+            failed.append(rec)
+    marks.append(time.perf_counter())
+    emit("scaling", device=results["device"], nodes=results["nodes"], edges=results["edges"],
+         rows=len(results["distributed_solve"]) + len(results["schur_solve_chain"]),
+         seconds={part: b - a for part, a, b in zip(("15a", "15a_rates_15c", "15b"), marks, marks[1:])},
+         total_seconds=marks[-1] - marks[0], note=results["note"])
+    if failed:
+        raise AssertionError(f"15b: the mesh-8 rows on the card differ from the CPU's: {failed}")
+    if len(results["distributed_solve"]) != 4 or len(results["schur_solve_chain"]) != 4:
+        raise AssertionError("15a: a mesh size of 1, 2, 4 or 8 gave no row")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -2359,6 +2507,9 @@ def main() -> None:
         times[name] = case
     k2_lanes = phase14(multi_cap, multi_cfg)
     del multi_cap
+    _, got = counted(scaling_phase)
+    if got[K1] or got[K2]:
+        raise AssertionError(f"15d: the scaling harness launched {got}")
     for name, launches in LAUNCHED.items():
         if launches == 0:
             raise AssertionError(f"the paths never launched {name}")

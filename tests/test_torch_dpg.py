@@ -324,22 +324,6 @@ def test_coverage_warning_once_per_pass(scene):
     assert len(records.messages) == 1 and "pass 2" in records.messages[0], records.messages
 
 
-def test_dpg_static_environment_no_changes():
-    """Same world twice -> (almost) nothing labeled ADDED/REMOVED."""
-    cfg = _tcfg(dpg_config())
-    world = jds.make_office_world()
-    wps = jds.office_loop_waypoints()
-    eng = DpgSlamEngine(cfg, "cpu")
-    _drive(eng, jds.simulate_sequence(world, wps, dpg_config().scan, step=0.5, seed=5))
-    eng.increment_pass()
-    _drive(eng, jds.simulate_sequence(world, wps, dpg_config().scan, step=0.5, seed=6))
-    labels = eng.state.labels[: eng.num_nodes()].numpy()
-    total = (labels != scan.MAX_RANGE).sum()
-    changed = ((labels == scan.ADDED) | (labels == scan.REMOVED)).sum()
-    assert eng.last_dpg_info is not None
-    assert changed / total < 0.05, f"{changed}/{total} points changed in a static world"
-
-
 # --- offline ------------------------------------------------------------------
 
 def test_process_sequence_runs_dpg_like_online(scene):

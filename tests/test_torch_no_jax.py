@@ -3,9 +3,10 @@ chip_smoke.py) imports jax or dpg_slam_tpu, the package runs keyframes, a
 second pass with DPG change detection and its map layers, the offline
 sequence mode, the session-batched mode, the online server, the
 multipass batched mode, the ICP modes K1 does not implement (RANSAC
-rejection, point-to-point) and the experiment runner (with its logs and
-checkpoint) in a process where jax cannot be imported, and chip_smoke.py
-refuses to run without a CUDA card."""
+rejection, point-to-point), the experiment runner (with its logs and
+checkpoint) and the scaling harness's structure table in a process where
+jax cannot be imported, and chip_smoke.py refuses to run without a CUDA
+card."""
 
 import ast
 import os
@@ -34,7 +35,8 @@ def test_no_source_imports_jax():
     assert {PKG / "dpg" / "change_detection.py", PKG / "ops" / "raster.py", PKG / "graph" / "segment.py",
             PKG / "run.py", PKG / "io" / "logs.py", PKG / "io" / "suites.py", PKG / "io" / "rosbag1.py",
             PKG / "io" / "convert.py", PKG / "viz.py", PKG / "utils" / "profiling.py",
-            PKG / "baselines" / "serial_cpu.py", PKG / "parallel" / "multihost.py"} <= set(files)
+            PKG / "baselines" / "serial_cpu.py", PKG / "parallel" / "multihost.py",
+            PKG / "bench_scaling.py"} <= set(files)
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "dpg_slam_tpu"}
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
@@ -128,11 +130,18 @@ with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringI
     replay, _ = run.run(run.parse_args([*argv, "--logs", str(out / "pass0.dsl")]))
     restored = load_checkpoint(out / "checkpoint", device="cpu")
 assert replay["passes"][0]["keyframes"] == summary["passes"][0]["keyframes"] == restored.num_nodes() > 5
+
+# The scaling harness's hardware-free table.
+from dpg_slam_tpu_torch import bench_scaling
+with contextlib.redirect_stdout(io.StringIO()) as buf:
+    assert bench_scaling.main(["--structure-only"]) == 0
+structure = json.loads(buf.getvalue())["comm_structure"]
+assert len(structure) == 18
 assert not any(m == "jax" or m.startswith(("jax.", "dpg_slam_tpu.")) or m == "dpg_slam_tpu"
                for m in sys.modules if sys.modules[m] is not None)
 print("three keyframes", int(eng.state.graph.num_edges), "dpg layers", len(layers["active_static"]),
       "batched lanes", counts, "server lanes", [srv.num_nodes(i) for i in range(2)], "multipass lanes", multi_counts,
-      "runner keyframes", summary["passes"][0]["keyframes"], "icp modes ok")
+      "runner keyframes", summary["passes"][0]["keyframes"], "icp modes ok", "scaling rows", len(structure))
 """
 
 
@@ -154,6 +163,7 @@ def test_port_runs_with_jax_blocked():
     assert "multipass lanes" in proc.stdout
     assert "runner keyframes" in proc.stdout
     assert "icp modes ok" in proc.stdout
+    assert "scaling rows 18" in proc.stdout
 
 
 def _assert_refused(proc):
