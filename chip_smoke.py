@@ -192,6 +192,7 @@ from dpg_slam_tpu_torch.parallel.partition import spatial_blocks
 from dpg_slam_tpu_torch.parallel.schur import schur_solve
 from dpg_slam_tpu_torch.utils.checkpoint import load_checkpoint, state_from_numpy, state_to_numpy
 from dpg_slam_tpu_torch.utils.metrics import ate_rmse, to_anchor_frame
+from dpg_slam_tpu_torch.utils import profiling
 from dpg_slam_tpu_torch.utils.profiling import TRACE_FILE
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -366,12 +367,13 @@ def check_repeats(name: str, runs) -> float:
 
 
 def counted(run):
-    """Run one path with both kernels' counts at 0; add what it launched to
-    LAUNCHED and return (result, {kernel: launches})."""
-    icp_cuda.LAUNCHES = 0
-    schur_cuda.LAUNCHES = 0
+    """Run one path and read both kernels' launch counters
+    (utils.profiling's k1.launches and k2.launches) around it; add what it
+    launched to LAUNCHED and return (result, {kernel: launches})."""
+    before = profiling.counters()
     out = run()
-    got = {K1: icp_cuda.LAUNCHES, K2: schur_cuda.LAUNCHES}
+    after = profiling.counters()
+    got = {k: after.get(c, 0) - before.get(c, 0) for k, c in ((K1, "k1.launches"), (K2, "k2.launches"))}
     for k, v in got.items():
         LAUNCHED[k] += v
     return out, got
@@ -2222,9 +2224,9 @@ import json, sys, time
 import numpy as np
 import torch
 import torch.distributed as dist
-from dpg_slam_tpu_torch.ops import icp_cuda, schur_cuda
 from dpg_slam_tpu_torch.parallel import distributed_reoptimize
 from dpg_slam_tpu_torch.parallel.multihost import global_mesh, initialize_multihost
+from dpg_slam_tpu_torch.utils import profiling
 from dpg_slam_tpu_torch.utils.checkpoint import load_checkpoint
 
 assert initialize_multihost(device="cuda")
@@ -2236,8 +2238,10 @@ state = distributed_reoptimize(mesh, eng.config, eng.state, solver="schur", pall
 torch.cuda.synchronize()
 secs = time.perf_counter() - t0
 np.savez(sys.argv[3], poses=state.poses.cpu().numpy(), **{f"graph{i}": x.cpu().numpy() for i, x in enumerate(state.graph)})
+n = profiling.counters()
 print(json.dumps(dict(backend=dist.get_backend(), world=mesh.world, shards=mesh.size, rank_shards=list(mesh.shards),
-                      device=str(mesh.device), seconds=secs, k1=icp_cuda.LAUNCHES, k2=schur_cuda.LAUNCHES)), flush=True)
+                      device=str(mesh.device), seconds=secs, k1=n.get("k1.launches", 0),
+                      k2=n.get("k2.launches", 0))), flush=True)
 dist.destroy_process_group()
 """
 

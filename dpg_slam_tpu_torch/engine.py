@@ -24,6 +24,7 @@ from dpg_slam_tpu_torch.config import DpgConfig
 from dpg_slam_tpu_torch.dpg import change_detection
 from dpg_slam_tpu_torch.graph import factor_graph as fg
 from dpg_slam_tpu_torch.ops import icp
+from dpg_slam_tpu_torch.utils import profiling
 
 __all__ = ["SlamState", "DpgSlamEngine"]
 
@@ -789,10 +790,11 @@ class DpgSlamEngine:
         if odometry.shape != (scans.shape[0], 3):
             raise ValueError(f"expected ({scans.shape[0]}, 3) odometry, got {odometry.shape}")
         dpg = (self._dpg_enabled if run_dpg is None else run_dpg) and not pipelined
-        self.state, kf_mask, info, saturated = _process_sequence(
-            self.config, self.state, odometry, scans,
-            self._incremental_method(self.config.capacity.max_nodes), pipelined, dpg,
-        )
+        with profiling.job():
+            self.state, kf_mask, info, saturated = _process_sequence(
+                self.config, self.state, odometry, scans,
+                self._incremental_method(self.config.capacity.max_nodes), pipelined, dpg,
+            )
         if info is not None:
             self.last_dpg_info = info
         if saturated:
@@ -821,11 +823,12 @@ class DpgSlamEngine:
         if int(self.state.graph.num_edges) + edges_worst_case > self.config.capacity.max_edges:
             raise RuntimeError("edge capacity exhausted; raise CapacityParams.max_edges")
         bucket = self._solve_bucket(n + 1)
-        self.state = _keyframe_step(
-            self.config, self.state, ranges, self._incremental_method(bucket), solve_bucket=bucket
-        )
-        if self._dpg_enabled and int(self.state.pass_number) >= 1:
-            self._execute_dpg()
+        with profiling.job():
+            self.state = _keyframe_step(
+                self.config, self.state, ranges, self._incremental_method(bucket), solve_bucket=bucket
+            )
+            if self._dpg_enabled and int(self.state.pass_number) >= 1:
+                self._execute_dpg()
         return True
 
     def increment_pass(self) -> None:
@@ -845,12 +848,13 @@ class DpgSlamEngine:
             cumulative_dist=torch.zeros_like(s.cumulative_dist),
         )
         if int(self.state.num_nodes) > 1:
-            if self.mesh is not None:
-                from dpg_slam_tpu_torch.parallel.distributed import distributed_reoptimize
+            with profiling.job():
+                if self.mesh is not None:
+                    from dpg_slam_tpu_torch.parallel.distributed import distributed_reoptimize
 
-                self.state = distributed_reoptimize(self.mesh, self.config, self.state)
-            else:
-                self.state = self._reoptimize_now(self.state)
+                    self.state = distributed_reoptimize(self.mesh, self.config, self.state)
+                else:
+                    self.state = self._reoptimize_now(self.state)
 
     def _reoptimize_now(self, state: SlamState) -> SlamState:
         """Reoptimize on the live node bucket with the sweep compacted to

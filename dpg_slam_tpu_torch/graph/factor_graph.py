@@ -30,6 +30,7 @@ import torch
 
 from dpg_slam_tpu_torch import geom
 from dpg_slam_tpu_torch.graph.segment import SegmentPlan, segment_plan, segment_sum
+from dpg_slam_tpu_torch.utils import profiling
 from dpg_slam_tpu_torch.ops import schur
 
 __all__ = [
@@ -625,34 +626,36 @@ def _assemble_lanes(
     residual sweep and one flat segment sum per block kind over the S·N
     node slots (lane s at offset s·N; plan: _assemble_plan). Returns (eq
     with (S, N, 3, 3), (S, E, 3, 3), (S, N, 3) blocks, error (S,))."""
-    S, N = poses.shape[:2]
-    P, E = g.prior_idx.shape[1], g.edge_idx.shape[1]
-    dt, dev = poses.dtype, poses.device
-    pmask, emask = g.prior_mask, g.edge_mask
-    p_idx, i_idx, j_idx = _factor_rows(g, N)
-    flat = poses.reshape(S * N, 3)
-    pr, pJ = _prior_rj(flat[p_idx], g.prior_val.reshape(-1, 3), g.prior_sqrt_info.reshape(-1, 3, 3))
-    er, Ji, Jj = _between_rj(flat[i_idx], flat[j_idx], g.edge_meas.reshape(-1, 3), g.edge_sqrt_info.reshape(-1, 3, 3))
-    pm = pmask.reshape(-1).to(dt)
-    em = emask.reshape(-1).to(dt)
+    with profiling.span("graph.assemble"):
+        S, N = poses.shape[:2]
+        P, E = g.prior_idx.shape[1], g.edge_idx.shape[1]
+        dt, dev = poses.dtype, poses.device
+        pmask, emask = g.prior_mask, g.edge_mask
+        p_idx, i_idx, j_idx = _factor_rows(g, N)
+        flat = poses.reshape(S * N, 3)
+        pr, pJ = _prior_rj(flat[p_idx], g.prior_val.reshape(-1, 3), g.prior_sqrt_info.reshape(-1, 3, 3))
+        er, Ji, Jj = _between_rj(flat[i_idx], flat[j_idx], g.edge_meas.reshape(-1, 3),
+                                 g.edge_sqrt_info.reshape(-1, 3, 3))
+        pm = pmask.reshape(-1).to(dt)
+        em = emask.reshape(-1).to(dt)
 
-    err = _lane_error((pr * pm[:, None]).view(S, P, 3), (er * em[:, None]).view(S, E, 3), robust_delta)
+        err = _lane_error((pr * pm[:, None]).view(S, P, 3), (er * em[:, None]).view(S, E, 3), robust_delta)
 
-    if robust_delta is not None:
-        em = em * torch.sqrt(_huber_weight(er, robust_delta))
-    pJ = pJ * pm[:, None, None]
-    pr = pr * pm[:, None]
-    Ji = Ji * em[:, None, None]
-    Jj = Jj * em[:, None, None]
-    er = er * em[:, None]
+        if robust_delta is not None:
+            em = em * torch.sqrt(_huber_weight(er, robust_delta))
+        pJ = pJ * pm[:, None, None]
+        pr = pr * pm[:, None]
+        Ji = Ji * em[:, None, None]
+        Jj = Jj * em[:, None, None]
+        er = er * em[:, None]
 
-    diag, off, rhs = _normal_blocks(pJ, pr, Ji, Jj, er, plan or _assemble_plan(g, N))
+        diag, off, rhs = _normal_blocks(pJ, pr, Ji, Jj, er, plan or _assemble_plan(g, N))
 
-    live = node_mask.reshape(-1)
-    eye = torch.eye(3, dtype=dt, device=dev)
-    diag = torch.where(live[:, None, None], diag, eye)
-    rhs = torch.where(live[:, None], rhs, 0.0)
-    return _NormalEq(diag.view(S, N, 3, 3), off.view(S, E, 3, 3), rhs.view(S, N, 3)), err
+        live = node_mask.reshape(-1)
+        eye = torch.eye(3, dtype=dt, device=dev)
+        diag = torch.where(live[:, None, None], diag, eye)
+        rhs = torch.where(live[:, None], rhs, 0.0)
+        return _NormalEq(diag.view(S, N, 3, 3), off.view(S, E, 3, 3), rhs.view(S, N, 3)), err
 
 
 def _dense_solve_lanes(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor,
@@ -672,6 +675,7 @@ def _dense_solve_lanes(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor,
     b = eq.rhs.reshape(S, 3 * N, 1)
     if lanes is None:
         lanes = range(S)
+    profiling.count("graph.factorizations", len(lanes))
     deltas = torch.zeros_like(b)
     for s in lanes:
         L, info = torch.linalg.cholesky_ex(H[s])
@@ -743,45 +747,48 @@ def solve_batched(
     the dense systems, cg_iterations each step). SolveStats holds (S,)
     tensors.
     """
-    if method not in ("chol", "cg_fixed"):
-        raise ValueError(f"unknown batched solve method {method!r}")
-    S, N = poses.shape[:2]
-    aplan, dplan = _assemble_plan(g, N), _dense_plan(g, N)
-    eq, err = _assemble_lanes(poses, g, node_mask, robust_delta, aplan)
-    dev = poses.device
-    damping = torch.full((S,), damping_init, dtype=poses.dtype, device=dev)
-    if gradient_tol > 0.0:
-        done = eq.rhs.abs().amax(dim=(1, 2)) <= gradient_tol
-    else:
-        done = torch.zeros((S,), dtype=torch.bool, device=dev)
-    accepted = torch.zeros((S,), dtype=torch.int32, device=dev)
-    err0 = err
-    for it in range(max_iterations):
-        if method == "chol":
-            delta = _dense_solve_lanes(eq, g, damping, dplan)
-        else:
-            delta = _dense_cg_fixed(eq, g, damping, cg_iterations, dplan)
-        cand = poses - delta
-        cand = torch.cat([cand[..., :2], geom.wrap_angle(cand[..., 2:3])], dim=-1)
-        eq_c, err_c = _assemble_lanes(cand, g, node_mask, robust_delta, aplan)
-        accept = (err_c < err) & ~done
-        small = (err - err_c) / torch.clamp(err, min=1e-12) < rel_tol
-        if terminate_on_reject:
-            new_done = small & (accept | (accepted > 0) | (it >= 1))
-        else:
-            new_done = accept & small
-        poses = torch.where(accept[:, None, None], cand, poses)
-        err = torch.where(accept, err_c, err)
-        eq = _NormalEq(*(
-            torch.where(accept.view((S,) + (1,) * (a.ndim - 1)), a, b) for a, b in zip(eq_c, eq)
-        ))
+    with profiling.span("graph.solve_batched"):
+        if method not in ("chol", "cg_fixed"):
+            raise ValueError(f"unknown batched solve method {method!r}")
+        S, N = poses.shape[:2]
+        aplan, dplan = _assemble_plan(g, N), _dense_plan(g, N)
+        eq, err = _assemble_lanes(poses, g, node_mask, robust_delta, aplan)
+        dev = poses.device
+        damping = torch.full((S,), damping_init, dtype=poses.dtype, device=dev)
         if gradient_tol > 0.0:
-            new_done = new_done | (accept & (eq_c.rhs.abs().amax(dim=(1, 2)) <= gradient_tol))
-        step = torch.where(accept, damping * 0.5, damping * 4.0)
-        damping = torch.where(done, damping, torch.clamp(step, 1e-9, 1e6))
-        accepted = accepted + (accept & ~done).to(torch.int32)
-        done = done | new_done
-    return poses, SolveStats(initial_error=err0, final_error=err, iterations=accepted)
+            done = eq.rhs.abs().amax(dim=(1, 2)) <= gradient_tol
+        else:
+            done = torch.zeros((S,), dtype=torch.bool, device=dev)
+        accepted = torch.zeros((S,), dtype=torch.int32, device=dev)
+        err0 = err
+        for it in range(max_iterations):
+            profiling.count("graph.lm_iterations")
+            with profiling.span("graph.factor"):
+                if method == "chol":
+                    delta = _dense_solve_lanes(eq, g, damping, dplan)
+                else:
+                    delta = _dense_cg_fixed(eq, g, damping, cg_iterations, dplan)
+            cand = poses - delta
+            cand = torch.cat([cand[..., :2], geom.wrap_angle(cand[..., 2:3])], dim=-1)
+            eq_c, err_c = _assemble_lanes(cand, g, node_mask, robust_delta, aplan)
+            accept = (err_c < err) & ~done
+            small = (err - err_c) / torch.clamp(err, min=1e-12) < rel_tol
+            if terminate_on_reject:
+                new_done = small & (accept | (accepted > 0) | (it >= 1))
+            else:
+                new_done = accept & small
+            poses = torch.where(accept[:, None, None], cand, poses)
+            err = torch.where(accept, err_c, err)
+            eq = _NormalEq(*(
+                torch.where(accept.view((S,) + (1,) * (a.ndim - 1)), a, b) for a, b in zip(eq_c, eq)
+            ))
+            if gradient_tol > 0.0:
+                new_done = new_done | (accept & (eq_c.rhs.abs().amax(dim=(1, 2)) <= gradient_tol))
+            step = torch.where(accept, damping * 0.5, damping * 4.0)
+            damping = torch.where(done, damping, torch.clamp(step, 1e-9, 1e6))
+            accepted = accepted + (accept & ~done).to(torch.int32)
+            done = done | new_done
+        return poses, SolveStats(initial_error=err0, final_error=err, iterations=accepted)
 
 
 # --------------------------------------------------------------------------
@@ -825,6 +832,7 @@ def _dense_cg_solve_lanes(eq: _NormalEq, g: FactorGraph, damping: torch.Tensor, 
     while it < iters:
         active = live & (_lane_dot(r, r) > rel_tol * rel_tol * b2)
         active_h = active.cpu()
+        profiling.count("host.reads")
         if not bool(active_h.any()):
             break
         Ap = torch.zeros_like(p)
@@ -909,46 +917,51 @@ def solve_lanes(
     The loop reads the host once an iteration (which lanes are live), and
     "dense_cg" once more a CG iteration. SolveStats holds (S,) tensors.
     """
-    if method not in ("dense", "dense_pallas", "dense_cg", "cg"):
-        raise ValueError(f"unknown solve method {method!r}")
-    S, N = poses.shape[:2]
-    aplan = _assemble_plan(g, N)
-    splan = _matvec_plan(g, N) if method == "cg" else _dense_plan(g, N)
-    eq, err = _assemble_lanes(poses, g, node_mask, robust_delta, aplan)
-    err0 = err
-    gnorm = eq.rhs.abs().amax(dim=(1, 2))
-    damping = torch.full((S,), damping_init, dtype=poses.dtype, device=poses.device)
-    accepted = torch.zeros((S,), dtype=torch.int32, device=poses.device)
-    done = torch.zeros((S,), dtype=torch.bool, device=poses.device)
-    for it in range(max_iterations):
-        live = ~done & (gnorm > gradient_tol)
-        live_h = live.cpu()  # the iteration's one host read
-        if not bool(live_h.any()):
-            break
-        if method == "dense":
-            delta = _dense_solve_lanes(eq, g, damping, splan, lanes=torch.nonzero(live_h)[:, 0].tolist())
-        elif method == "dense_pallas":
-            delta = schur.spd_solve(_dense_H(eq, g, damping, splan), eq.rhs.reshape(S, 3 * N, 1)).reshape(S, N, 3)
-        elif method == "dense_cg":
-            delta = _dense_cg_solve_lanes(eq, g, damping, cg_iterations, live, plan=splan)
-        else:
-            delta = _cg_solve_lanes(eq, g, damping, cg_iterations, splan)
-        cand = poses - delta
-        cand = torch.cat([cand[..., :2], geom.wrap_angle(cand[..., 2:3])], dim=-1)
-        eq_c, err_c = _assemble_lanes(cand, g, node_mask, robust_delta, aplan)
-        accept = err_c < err
-        small = (err - err_c) / torch.clamp(err, min=1e-12) < rel_tol
-        if terminate_on_reject:
-            stop = small & (accept | (accepted > 0) | (it >= 1))
-        else:
-            stop = accept & small
-        take = accept & live
-        poses = _lane_where(take, cand, poses)
-        err = torch.where(take, err_c, err)
-        eq = _NormalEq(*(_lane_where(take, a, b) for a, b in zip(eq_c, eq)))
-        gnorm = torch.where(take, eq_c.rhs.abs().amax(dim=(1, 2)), gnorm)
-        step = torch.clamp(damping * torch.where(accept, 0.5, 4.0), 1e-9, 1e6)
-        damping = torch.where(live, step, damping)
-        accepted = accepted + take.to(torch.int32)
-        done = done | (live & stop)
-    return poses, SolveStats(initial_error=err0, final_error=err, iterations=accepted)
+    with profiling.span("graph.solve_lanes"):
+        if method not in ("dense", "dense_pallas", "dense_cg", "cg"):
+            raise ValueError(f"unknown solve method {method!r}")
+        S, N = poses.shape[:2]
+        aplan = _assemble_plan(g, N)
+        splan = _matvec_plan(g, N) if method == "cg" else _dense_plan(g, N)
+        eq, err = _assemble_lanes(poses, g, node_mask, robust_delta, aplan)
+        err0 = err
+        gnorm = eq.rhs.abs().amax(dim=(1, 2))
+        damping = torch.full((S,), damping_init, dtype=poses.dtype, device=poses.device)
+        accepted = torch.zeros((S,), dtype=torch.int32, device=poses.device)
+        done = torch.zeros((S,), dtype=torch.bool, device=poses.device)
+        for it in range(max_iterations):
+            live = ~done & (gnorm > gradient_tol)
+            live_h = live.cpu()  # the iteration's one host read
+            profiling.count("host.reads")
+            if not bool(live_h.any()):
+                break
+            profiling.count("graph.lm_iterations")
+            with profiling.span("graph.factor"):
+                if method == "dense":
+                    delta = _dense_solve_lanes(eq, g, damping, splan, lanes=torch.nonzero(live_h)[:, 0].tolist())
+                elif method == "dense_pallas":
+                    H = _dense_H(eq, g, damping, splan)
+                    delta = schur.spd_solve(H, eq.rhs.reshape(S, 3 * N, 1)).reshape(S, N, 3)
+                elif method == "dense_cg":
+                    delta = _dense_cg_solve_lanes(eq, g, damping, cg_iterations, live, plan=splan)
+                else:
+                    delta = _cg_solve_lanes(eq, g, damping, cg_iterations, splan)
+            cand = poses - delta
+            cand = torch.cat([cand[..., :2], geom.wrap_angle(cand[..., 2:3])], dim=-1)
+            eq_c, err_c = _assemble_lanes(cand, g, node_mask, robust_delta, aplan)
+            accept = err_c < err
+            small = (err - err_c) / torch.clamp(err, min=1e-12) < rel_tol
+            if terminate_on_reject:
+                stop = small & (accept | (accepted > 0) | (it >= 1))
+            else:
+                stop = accept & small
+            take = accept & live
+            poses = _lane_where(take, cand, poses)
+            err = torch.where(take, err_c, err)
+            eq = _NormalEq(*(_lane_where(take, a, b) for a, b in zip(eq_c, eq)))
+            gnorm = torch.where(take, eq_c.rhs.abs().amax(dim=(1, 2)), gnorm)
+            step = torch.clamp(damping * torch.where(accept, 0.5, 4.0), 1e-9, 1e6)
+            damping = torch.where(live, step, damping)
+            accepted = accepted + take.to(torch.int32)
+            done = done | (live & stop)
+        return poses, SolveStats(initial_error=err0, final_error=err, iterations=accepted)

@@ -33,6 +33,7 @@ import torch
 
 from dpg_slam_tpu_torch import geom
 from dpg_slam_tpu_torch.config import PoseGraphParams
+from dpg_slam_tpu_torch.utils import profiling
 
 __all__ = ["ICPResult", "censi_covariance", "estimate_normals", "icp_align", "ransac_samples"]
 
@@ -480,27 +481,33 @@ def icp_align(
     ransac_samples (icp_maximum_iterations, B, ransac_iterations, 2)
     source indices: RANSAC's samples, when it is on (default:
     ops.icp.ransac_samples' draw).
-    """
-    if tgt_normals is None:
-        tgt_normals = estimate_normals(tgt, tgt_mask)
-    if sensor_noise_std is None:
-        sensor_noise_std = params.icp_sensor_noise_std
-    if min_overlap is None:
-        min_overlap = params.icp_min_overlap
-    if gate_multiplier is None:
-        gate_multiplier = torch.full(
-            (src.shape[0],), params.icp_coarse_gate_multiplier,
-            dtype=torch.float32, device=src.device,
-        )
-    kwargs = dict(
-        tgt_normals=tgt_normals, gate_multiplier=gate_multiplier,
-        min_correspondences=min_correspondences, fitness_threshold=fitness_threshold,
-        min_overlap=min_overlap, sensor_noise_std=sensor_noise_std,
-    )
-    if src.device.type not in ("cpu", "cuda"):
-        raise NotImplementedError(f"no ICP path for device {src.device}")
-    if src.device.type == "cuda" and params.icp_point_to_line and not params.icp_use_ransac_rejection:
-        from dpg_slam_tpu_torch.ops.icp_cuda import icp_align_cuda
 
-        return icp_align_cuda(src, src_mask, tgt, tgt_mask, init_guess, params, **kwargs)
-    return icp_align_plain(src, src_mask, tgt, tgt_mask, init_guess, params, ransac_samples=ransac_samples, **kwargs)
+    The call is the span icp.align and adds B to the counter k1.pairs
+    (utils.profiling).
+    """
+    profiling.count("k1.pairs", src.shape[0])
+    with profiling.span("icp.align"):
+        if tgt_normals is None:
+            tgt_normals = estimate_normals(tgt, tgt_mask)
+        if sensor_noise_std is None:
+            sensor_noise_std = params.icp_sensor_noise_std
+        if min_overlap is None:
+            min_overlap = params.icp_min_overlap
+        if gate_multiplier is None:
+            gate_multiplier = torch.full(
+                (src.shape[0],), params.icp_coarse_gate_multiplier,
+                dtype=torch.float32, device=src.device,
+            )
+        kwargs = dict(
+            tgt_normals=tgt_normals, gate_multiplier=gate_multiplier,
+            min_correspondences=min_correspondences, fitness_threshold=fitness_threshold,
+            min_overlap=min_overlap, sensor_noise_std=sensor_noise_std,
+        )
+        if src.device.type not in ("cpu", "cuda"):
+            raise NotImplementedError(f"no ICP path for device {src.device}")
+        if src.device.type == "cuda" and params.icp_point_to_line and not params.icp_use_ransac_rejection:
+            from dpg_slam_tpu_torch.ops.icp_cuda import icp_align_cuda
+
+            return icp_align_cuda(src, src_mask, tgt, tgt_mask, init_guess, params, **kwargs)
+        return icp_align_plain(src, src_mask, tgt, tgt_mask, init_guess, params, ransac_samples=ransac_samples,
+                               **kwargs)

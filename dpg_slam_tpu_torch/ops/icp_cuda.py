@@ -36,11 +36,9 @@ import torch
 from dpg_slam_tpu_torch.config import PoseGraphParams
 from dpg_slam_tpu_torch.ops import _nvcc
 from dpg_slam_tpu_torch.ops import icp as icp_mod
+from dpg_slam_tpu_torch.utils import profiling
 
-__all__ = ["CLUSTERS", "LAUNCHES", "icp_align_cuda", "launch_plan", "run_kernel", "smem_bytes"]
-
-# Kernel launches since import (or since a caller reset it to 0).
-LAUNCHES = 0
+__all__ = ["CLUSTERS", "icp_align_cuda", "launch_plan", "run_kernel", "smem_bytes"]
 
 _MASK_COORD = 1e4  # masked points parked at -/+ this: gated out by distance
 _OUT_COLS = 24
@@ -103,8 +101,8 @@ def run_kernel(src_planes: torch.Tensor, tgt_planes: torch.Tensor, seeds: torch.
     """Launch K1 on (3, B, Ps) source planes, (4, B, Pt) target planes and
     (B, 4) seeds; returns the (B, 24) output rows (see the kernel source for
     the columns). `cluster` (1, 2, 4 or 8) overrides launch_plan's layout,
-    to compare them; a size the kernel does not take raises."""
-    global LAUNCHES
+    to compare them; a size the kernel does not take raises. Each launch
+    adds 1 to the counter k1.launches (utils.profiling)."""
     dev = src_planes.device
     if dev.type != "cuda" or tgt_planes.device != dev or seeds.device != dev:
         raise ValueError("run_kernel takes CUDA tensors on one device")
@@ -145,7 +143,7 @@ def run_kernel(src_planes: torch.Tensor, tgt_planes: torch.Tensor, seeds: torch.
     )
     if err != 0:
         raise RuntimeError(f"ICP kernel launch failed (cluster of {C}): cudaError {err}")
-    LAUNCHES += 1
+    profiling.count("k1.launches")
     return out
 
 

@@ -36,12 +36,9 @@ from typing import NamedTuple
 import torch
 
 from dpg_slam_tpu_torch.ops import _nvcc
+from dpg_slam_tpu_torch.utils import profiling
 
-__all__ = ["LAUNCHES", "LaunchPlan", "launch_plan", "launch_shape", "run_kernel", "spd_solve_cuda"]
-
-# Calls of the kernel's entry point since import (or since a caller reset
-# it to 0); one per solve, whatever the number of launches it issues.
-LAUNCHES = 0
+__all__ = ["LaunchPlan", "launch_plan", "launch_shape", "run_kernel", "spd_solve_cuda"]
 
 _SRC = _nvcc.CSRC / "spd_solve_kernel.cu"
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
@@ -137,8 +134,9 @@ def run_kernel(H: torch.Tensor, B: torch.Tensor, X: torch.Tensor, work: torch.Te
     """Launch K2 into X (S, n, m) with the (S, n, n) workspace `work`, both
     contiguous float32 on H's device; returns X, and leaves H's Cholesky
     factor in work's lower triangle. `factorization` ("single" or "multi")
-    overrides launch_plan's choice, to compare the two layouts."""
-    global LAUNCHES
+    overrides launch_plan's choice, to compare the two layouts. Each call
+    of the kernel's entry point adds 1 to the counter k2.launches
+    (utils.profiling), whatever the number of launches it issues."""
     S, n, m = _check(H, B)
     for t, shape in ((X, (S, n, m)), (work, (S, n, n))):
         if t.shape != shape or t.dtype != torch.float32 or t.device != H.device or not t.is_contiguous():
@@ -163,5 +161,5 @@ def run_kernel(H: torch.Tensor, B: torch.Tensor, X: torch.Tensor, work: torch.Te
     )
     if err != 0:
         raise RuntimeError(f"SPD kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    profiling.count("k2.launches")
     return X

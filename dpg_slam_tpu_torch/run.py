@@ -36,7 +36,7 @@ from dpg_slam_tpu_torch.io import logs as log_io
 from dpg_slam_tpu_torch.io import suites as suites_mod
 from dpg_slam_tpu_torch.utils.checkpoint import save_checkpoint
 from dpg_slam_tpu_torch.utils.metrics import ate_rmse, relative_pose_error, to_anchor_frame
-from dpg_slam_tpu_torch.utils.profiling import StageTimer, device_trace
+from dpg_slam_tpu_torch.utils import profiling
 
 __all__ = ["build_config", "synthetic_passes", "run_pass", "parse_args", "run", "main"]
 
@@ -74,16 +74,13 @@ def synthetic_passes(cfg, n_passes: int, scenario: str):
     return seqs
 
 
-def _untimed(stage: str):
-    return contextlib.nullcontext()
-
-
 def run_pass(eng, seq, timer=None):
     """Feed one session through the engine scan by scan (the node's
     odometry / laser callbacks); returns the keyframes' timestep indices.
-    With a StageTimer, records each callback's wall-clock."""
+    With a StageTimer, records each callback's wall-clock; either way
+    each callback is a span of the recorder (utils.profiling)."""
     kf = []
-    stage = timer or _untimed
+    stage = timer or profiling.span
     for t in range(len(seq.scans)):
         with stage("observe_odometry"):
             eng.observe_odometry(seq.odometry[t])
@@ -112,8 +109,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--save-checkpoint", action="store_true")
     parser.add_argument("--save-logs", action="store_true", help="persist the sessions as .dsl logs")
     parser.add_argument("--profile", action="store_true",
-                        help="per-stage wall-clock stats in the summary; with --out, also a torch.profiler "
-                             "trace of the pass-boundary reoptimize under <out>/trace")
+                        help="per-stage wall-clock stats in the summary and the program's spans recorded; with "
+                             "--out, also a torch.profiler trace of the pass-boundary reoptimize, spans included, "
+                             "under <out>/trace")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda; cpu runs the plain versions)")
     return parser.parse_args(argv)
 
@@ -149,48 +147,51 @@ def run(args: argparse.Namespace):
     out_dir = pathlib.Path(args.out) if args.out else None
     if out_dir:
         out_dir.mkdir(parents=True, exist_ok=True)
-    timer = StageTimer(sync) if args.profile else None
-    stage = timer or _untimed
+    timer = profiling.StageTimer(sync) if args.profile else None
+    stage = timer or profiling.span
 
-    summary = {"passes": [], "config_beams": cfg.scan.num_beams}
-    node_start = 0
-    for p, seq in enumerate(seqs):
-        t0 = clock()
-        if args.offline:
-            with stage("process_sequence"):
-                kf = list(np.flatnonzero(eng.process_sequence(seq.odometry, seq.scans)))
-        else:
-            kf = run_pass(eng, seq, timer=timer)
-        track_s = clock() - t0
-
-        pass_info = {
-            "pass": p,
-            "scans": len(seq.scans),
-            "keyframes": len(kf),
-            "track_seconds": round(track_s, 2),
-            "track_fps": round(len(seq.scans) / track_s, 1),
-        }
-        if seq.ground_truth is not None and kf:
-            gt = to_anchor_frame(seq.ground_truth[kf])
-            traj = eng.trajectory()[node_start:]
-            pass_info["ate_m"] = round(ate_rmse(traj, gt), 4)
-            pass_info["rpe_m"] = round(relative_pose_error(traj, gt), 4)
-        if eng.last_dpg_info is not None:
-            pass_info["dpg_coverage"] = round(float(eng.last_dpg_info.coverage), 3)
-        summary["passes"].append(pass_info)
-        node_start = eng.num_nodes()
-
-        if out_dir and args.save_logs:
-            log_io.save_sequence(out_dir / f"pass{p}.dsl", seq)
-
-        if p < len(seqs) - 1:
-            trace = contextlib.nullcontext()
-            if timer is not None and out_dir and p == 0:
-                trace = device_trace(out_dir / "trace")
+    # --profile records the program's spans: the trace below shows them
+    # over the device's operations.
+    with profiling.tracing() if args.profile else contextlib.nullcontext():
+        summary = {"passes": [], "config_beams": cfg.scan.num_beams}
+        node_start = 0
+        for p, seq in enumerate(seqs):
             t0 = clock()
-            with trace, stage("reoptimize"):
-                eng.increment_pass()  # the /new_pass + reoptimize handshake
-            summary["passes"][-1]["reoptimize_seconds"] = round(clock() - t0, 2)
+            if args.offline:
+                with stage("process_sequence"):
+                    kf = list(np.flatnonzero(eng.process_sequence(seq.odometry, seq.scans)))
+            else:
+                kf = run_pass(eng, seq, timer=timer)
+            track_s = clock() - t0
+
+            pass_info = {
+                "pass": p,
+                "scans": len(seq.scans),
+                "keyframes": len(kf),
+                "track_seconds": round(track_s, 2),
+                "track_fps": round(len(seq.scans) / track_s, 1),
+            }
+            if seq.ground_truth is not None and kf:
+                gt = to_anchor_frame(seq.ground_truth[kf])
+                traj = eng.trajectory()[node_start:]
+                pass_info["ate_m"] = round(ate_rmse(traj, gt), 4)
+                pass_info["rpe_m"] = round(relative_pose_error(traj, gt), 4)
+            if eng.last_dpg_info is not None:
+                pass_info["dpg_coverage"] = round(float(eng.last_dpg_info.coverage), 3)
+            summary["passes"].append(pass_info)
+            node_start = eng.num_nodes()
+
+            if out_dir and args.save_logs:
+                log_io.save_sequence(out_dir / f"pass{p}.dsl", seq)
+
+            if p < len(seqs) - 1:
+                trace = contextlib.nullcontext()
+                if timer is not None and out_dir and p == 0:
+                    trace = profiling.device_trace(out_dir / "trace")
+                t0 = clock()
+                with trace, stage("reoptimize"):
+                    eng.increment_pass()  # the /new_pass + reoptimize handshake
+                summary["passes"][-1]["reoptimize_seconds"] = round(clock() - t0, 2)
 
     if timer is not None:
         summary["profile"] = timer.summary()

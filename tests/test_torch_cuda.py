@@ -38,6 +38,7 @@ from dpg_slam_tpu_torch.graph import factor_graph as fg
 from dpg_slam_tpu_torch.io import dataset
 from dpg_slam_tpu_torch.ops import icp, icp_cuda, schur, schur_cuda
 from dpg_slam_tpu_torch.parallel import distributed_reoptimize, make_mesh
+from dpg_slam_tpu_torch.utils import profiling
 from dpg_slam_tpu_torch.utils.checkpoint import load_checkpoint, state_from_numpy, state_to_numpy
 
 
@@ -46,6 +47,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     return torch.device("cuda")
+
+
+def _launches(kernel: str) -> int:
+    """Launches of kernel K1 ("k1") or K2 ("k2") so far, by the package's
+    counters (utils.profiling)."""
+    return profiling.counters().get(f"{kernel}.launches", 0)
 
 
 def _room_batch(B, seed, noise=0.005, n=256):
@@ -89,10 +96,10 @@ def test_kernel_matches_plain_on_card(cuda, case):
         min_correspondences=10, fitness_threshold=0.25, min_overlap=pg.icp_min_overlap,
         sensor_noise_std=pg.icp_sensor_noise_std,
     )
-    before = icp_cuda.LAUNCHES
+    before = _launches("k1")
     ker = icp.icp_align(*args, **kw)  # dispatches to K1 on a CUDA tensor
     torch.cuda.synchronize()
-    assert icp_cuda.LAUNCHES == before + 1
+    assert _launches("k1") == before + 1
     ref = icp.icp_align_plain(*args, **kw)
     np.testing.assert_allclose(ker.transform.cpu(), ref.transform.cpu(), atol=5e-4)
     np.testing.assert_allclose(ker.fitness.cpu(), ref.fitness.cpu(), atol=1e-4)
@@ -121,10 +128,10 @@ def test_kernel_matches_plain_fewer_sources_than_targets(cuda):
         min_correspondences=10, fitness_threshold=0.25, min_overlap=pg.icp_min_overlap,
         sensor_noise_std=pg.icp_sensor_noise_std,
     )
-    before = icp_cuda.LAUNCHES
+    before = _launches("k1")
     ker = icp.icp_align(*args, **kw)
     torch.cuda.synchronize()
-    assert icp_cuda.LAUNCHES == before + 1
+    assert _launches("k1") == before + 1
     ref = icp.icp_align_plain(*args, **kw)
     np.testing.assert_allclose(ker.transform.cpu(), ref.transform.cpu(), atol=5e-4)
     np.testing.assert_allclose(ker.fitness.cpu(), ref.fitness.cpu(), atol=1e-4)
@@ -170,11 +177,11 @@ def test_kernel_launch_plan_launches(cuda):
     _, B, Ps = packed[0].shape
     plan = icp_cuda.launch_plan(B, Ps, packed[1].shape[2], torch.cuda.get_device_properties(cuda).multi_processor_count)
     assert plan > 1
-    before = icp_cuda.LAUNCHES
+    before = _launches("k1")
     planned = icp_cuda.run_kernel(*packed, pg, False)
     forced = icp_cuda.run_kernel(*packed, pg, False, cluster=plan)
     torch.cuda.synchronize()
-    assert icp_cuda.LAUNCHES == before + 2
+    assert _launches("k1") == before + 2
     assert torch.equal(planned, forced) and bool(torch.isfinite(planned).all())
 
 
@@ -246,10 +253,10 @@ def _spd_batch(S, n, m, pad, seed=0):
 @pytest.mark.parametrize("S,n,m,pad", [(4, 192, 385, 0), (1, 768, 1, 0), (1, 192, 1, 0), (3, 128, 7, 5)])
 def test_spd_kernel_matches_plain_on_card(cuda, S, n, m, pad):
     H, B = (x.to(cuda) for x in _spd_batch(S, n, m, pad))
-    before = schur_cuda.LAUNCHES
+    before = _launches("k2")
     X = schur.spd_solve(H, B)
     torch.cuda.synchronize()
-    assert schur_cuda.LAUNCHES == before + 1
+    assert _launches("k2") == before + 1
     ref = schur.spd_solve_plain(H, B)
     assert (X - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
     if pad:  # identity rows pass B through
@@ -319,10 +326,10 @@ def test_dense_pallas_on_card_matches_cpu(cuda):
         si = fg.sqrt_info_from_sigmas(torch.tensor([0.1, 0.1, 0.05], device=dev)).expand(len(pairs), 3, 3)
         p = torch.as_tensor(pairs, device=dev)
         g = fg.add_between_batch(g, p[:, 0], p[:, 1], meas.to(dev), si, torch.ones(len(pairs), dtype=torch.bool, device=dev))
-        before = schur_cuda.LAUNCHES
+        before = _launches("k2")
         poses, _ = fg.solve(init.to(dev), g, torch.ones(N, dtype=torch.bool, device=dev),
                             method="dense_pallas", max_iterations=15)
-        assert (schur_cuda.LAUNCHES > before) == (dev.type == "cuda")
+        assert (_launches("k2") > before) == (dev.type == "cuda")
         out.append(poses.cpu())
     torch.testing.assert_close(out[0], out[1], rtol=0, atol=1e-2)
 
@@ -346,9 +353,9 @@ def test_schur_reoptimize_on_card_matches_cpu(cuda):
     out = []
     for dev in (cuda, torch.device("cpu")):
         state = state_from_numpy(flat, cfg, dev)
-        before = schur_cuda.LAUNCHES
+        before = _launches("k2")
         new = distributed_reoptimize(make_mesh(4, dev), cfg, state, solver="schur", pallas_elimination=True)
-        assert (schur_cuda.LAUNCHES > before) == (dev.type == "cuda")
+        assert (_launches("k2") > before) == (dev.type == "cuda")
         out.append(new.poses[: eng.num_nodes()].cpu())
     d = (out[0] - out[1]).abs()
     d[:, 2] = torch.remainder(d[:, 2] + np.pi, 2 * np.pi) - np.pi
@@ -396,13 +403,13 @@ def test_batched_step_loop_makes_no_host_sync(cuda, method):
     batch._process_sessions_batched(cfg, states, *steps, method, bucket)  # first use: handles, constants
     states, steps, bucket, method = _batched_loop(cfg, sessions, cuda, method)
     torch.cuda.synchronize()
-    before = icp_cuda.LAUNCHES
+    before = _launches("k1")
     torch.cuda.set_sync_debug_mode("error")
     try:
         states = batch._process_sessions_batched(cfg, states, *steps, method, bucket)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert icp_cuda.LAUNCHES - before == steps[0].shape[0]  # one K1 launch a step
+    assert _launches("k1") - before == steps[0].shape[0]  # one K1 launch a step
     assert (states.num_nodes.cpu() > 3).all()
 
 
@@ -468,13 +475,13 @@ def test_dpg_step_on_card_matches_cpu(cuda):
     gpu = load_checkpoint(SESSION, cuda).state
     change_detection.execute_dpg(cfg, gpu)  # first use: constants
     torch.cuda.synchronize()
-    before = icp_cuda.LAUNCHES
+    before = _launches("k1")
     torch.cuda.set_sync_debug_mode("error")
     try:
         g_new, g_info = change_detection.execute_dpg(cfg, gpu)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert icp_cuda.LAUNCHES == before + 1
+    assert _launches("k1") == before + 1
     c_new, c_info = change_detection.execute_dpg(cfg, cpu)
     n = int(cpu.num_nodes)
     assert (g_new.labels[:n].cpu() != c_new.labels[:n]).sum().item() <= 1e-3 * n * cfg.scan.num_beams
@@ -542,13 +549,13 @@ def test_lane_dpg_step_on_card_matches_one_lane(cuda):
     lanes = _session_lanes(cuda, 4)
     change_detection.execute_dpg_lanes(cfg, lanes)  # first use: constants
     torch.cuda.synchronize()
-    before = icp_cuda.LAUNCHES
+    before = _launches("k1")
     torch.cuda.set_sync_debug_mode("error")
     try:
         new, info = change_detection.execute_dpg_lanes(cfg, lanes)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert icp_cuda.LAUNCHES == before + 1
+    assert _launches("k1") == before + 1
     for i in range(4):
         one, one_info = change_detection.execute_dpg(cfg, batch.session_state(lanes, i))
         n = int(lanes.num_nodes[i])
@@ -673,7 +680,7 @@ def test_server_tick_loop_makes_no_host_sync(cuda):
         warm.observe(odo[t], scn[t])
     warm.flush()
     srv = batch.BatchedSlamServer(cfg, 4, device=cuda)
-    before = icp_cuda.LAUNCHES
+    before = _launches("k1")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -682,7 +689,7 @@ def test_server_tick_loop_makes_no_host_sync(cuda):
         srv.flush()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert icp_cuda.LAUNCHES - before == srv.steps_executed < srv.keyframes_executed
+    assert _launches("k1") - before == srv.steps_executed < srv.keyframes_executed
     assert min(srv.num_nodes(i) for i in range(4)) >= 10
 
 

@@ -104,7 +104,8 @@ def test_checkpoints_load_both_ways(online):
 
 
 def test_profile_stages_and_trace(online):
-    """The JAX runner's stages, in the JAX StageTimer's summary schema."""
+    """The JAX runner's stages, in the JAX StageTimer's summary schema, and
+    the program's spans in the trace."""
     summary, _, port_out, _ = online
     jax_timer = jprofiling.StageTimer()
     with jax_timer("stage"):
@@ -116,6 +117,9 @@ def test_profile_stages_and_trace(online):
         assert set(v) == set(jax_timer.summary()["stage"]) and v["total_s"] > 0
     trace = json.loads((port_out / "trace" / TRACE_FILE).read_text())
     assert len(trace["traceEvents"]) > 100
+    # --profile records the program's spans: the reoptimize's ICP sweep
+    # is a range of the trace.
+    assert "icp.align" in {e.get("name") for e in trace["traceEvents"]}
 
 
 def test_render_png(online):
