@@ -52,8 +52,7 @@ TRACE_FILE = "trace.json"
 SPANS = (
     # batch: the batched and multipass loops, and the pass boundary
     "batch.schedule", "batch.loop",
-    "batch.keyframe", "batch.keyframe.nodes", "batch.keyframe.candidates", "batch.keyframe.vote",
-    "batch.keyframe.factors",
+    "batch.keyframe", "batch.keyframe.nodes", "batch.keyframe.candidates", "batch.keyframe.factors",
     "batch.solve", "batch.dpg",
     "batch.boundary", "boundary.read", "boundary.inputs", "boundary.rebuild",
     # graph.factor_graph: the lane LM solves
@@ -71,6 +70,8 @@ COUNTERS = (
     "batch.keyframes",     # keyframes of the batched and multipass jobs and the server's steps
     "batch.steps",         # batched keyframe steps (stride padding included)
     "batch.lane_steps",    # steps x lanes: keyframes / lane_steps is the lane work that was not padding
+    "batch.keyframe_graph_captures",  # keyframe loops that captured their step as CUDA graphs
+    "batch.keyframe_graph_replays",   # keyframe steps replayed from those graphs
     "k1.launches",         # launches of kernel K1 (ops/icp_cuda.run_kernel)
     "k1.pairs",            # pairs handed to ops/icp.icp_align (K1 on the card, the plain loop on the CPU)
     "k2.launches",         # launches of kernel K2 (ops/schur_cuda.run_kernel)

@@ -28,6 +28,7 @@ from dpg_slam_tpu_torch import engine as teng
 from dpg_slam_tpu_torch.config import DpgConfig as TorchConfig
 from dpg_slam_tpu_torch.graph import factor_graph as tfg
 from dpg_slam_tpu_torch.utils import checkpoint as tckpt
+from dpg_slam_tpu_torch.utils import profiling
 
 from test_batch import _make_session, small_config
 
@@ -275,3 +276,33 @@ def test_batched_entry_point_requires_a_device():
 
     for fn in (tb.process_sessions_batched, tb._stack_states):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+GRAPH_COUNTERS = ("batch.keyframe_graph_captures", "batch.keyframe_graph_replays")
+
+
+@pytest.mark.parametrize("call", ["loop", "single_step"])
+def test_keyframe_graphs_stay_off_on_the_cpu_and_for_a_single_step(cfgs, seqs, call):
+    """The keyframe loop captures its step as CUDA graphs only on a CUDA
+    device: a CPU loop of more than the break-even step count, and a
+    single _batched_keyframe_step (the server's), run eagerly and leave
+    both graph counters as they were; both counters are in COUNTERS."""
+    _, tcfg = cfgs
+    assert set(GRAPH_COUNTERS) <= set(profiling.COUNTERS)
+    sessions = [(s.odometry[:40], s.scans[:40]) for s in seqs]
+    steps, counts, bucket, method = tb._schedule(tcfg, sessions, None, None, 2)
+    steps = [torch.as_tensor(x) for x in steps]
+    states = tb._stack_states(tcfg, len(sessions), "cpu")
+    assert steps[0].shape[0] >= tb._GRAPH_MIN_STEPS
+    before = profiling.counters()
+    if call == "loop":
+        assert tb._KeyframeGraphs.engage(states, steps[0].shape[0]) is None
+        out = tb._process_sessions_batched(tcfg, states, *steps, method, bucket, 2)
+        assert out.num_nodes.tolist() == counts
+    else:
+        out = tb._batched_keyframe_step(tcfg, states, steps[0][0], steps[1][0], steps[2][0], method, bucket)
+        assert out.num_nodes.tolist() == [1, 1] and states.num_nodes.tolist() == [0, 0]
+    after = profiling.counters()
+    for name in GRAPH_COUNTERS:
+        assert after.get(name, 0) == before.get(name, 0) == 0, name
+    assert tb._LOOP_GRAPHS.get() is None

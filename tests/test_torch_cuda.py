@@ -31,7 +31,7 @@ import pytest
 import torch
 
 from dpg_slam_tpu_torch import batch, geom
-from dpg_slam_tpu_torch.config import CapacityParams, DpgConfig, PoseGraphParams, ScanParams
+from dpg_slam_tpu_torch.config import CapacityParams, DpgConfig, DpgParams, PoseGraphParams, ScanParams
 from dpg_slam_tpu_torch.dpg import change_detection
 from dpg_slam_tpu_torch.engine import DpgSlamEngine
 from dpg_slam_tpu_torch.graph import factor_graph as fg
@@ -438,7 +438,10 @@ def test_kernel_matches_plain_on_a_batched_step(cuda):
     real = icp.icp_align
 
     def capture(*args, **kwargs):
-        calls.append((args, kwargs))
+        # Copies: inside the loop the pairs are the keyframe graphs'
+        # buffers, which every step rewrites.
+        calls.append((tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+                      {k: v.clone() if torch.is_tensor(v) else v for k, v in kwargs.items()}))
         return real(*args, **kwargs)
 
     icp.icp_align = capture
@@ -502,7 +505,10 @@ def test_kernel_matches_plain_on_the_dpg_batch(cuda):
     real = icp.icp_align
 
     def capture(*args, **kwargs):
-        calls.append((args, kwargs))
+        # Copies: inside the loop the pairs are the keyframe graphs'
+        # buffers, which every step rewrites.
+        calls.append((tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+                      {k: v.clone() if torch.is_tensor(v) else v for k, v in kwargs.items()}))
         return real(*args, **kwargs)
 
     icp.icp_align = capture
@@ -578,7 +584,10 @@ def test_kernel_matches_plain_on_the_lane_dpg_batch(cuda):
     real = icp.icp_align
 
     def capture(*args, **kwargs):
-        calls.append((args, kwargs))
+        # Copies: inside the loop the pairs are the keyframe graphs'
+        # buffers, which every step rewrites.
+        calls.append((tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+                      {k: v.clone() if torch.is_tensor(v) else v for k, v in kwargs.items()}))
         return real(*args, **kwargs)
 
     icp.icp_align = capture
@@ -711,6 +720,113 @@ def test_server_immediate_matches_offline_on_card(cuda):
         got, want = (state_to_numpy(batch.session_state(x, i)) for x in (srv.states, off))
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=f"lane {i}: {k}")
+
+
+# --- the keyframe loop replayed from CUDA graphs ------------------------------
+
+GRAPH_COUNTERS = ("batch.keyframe_graph_captures", "batch.keyframe_graph_replays", "batch.steps")
+
+
+def _graph_job(cuda, job):
+    """(run, keyframe loops a call) of the graph test's job: "batched", a
+    loop of 4 lanes at stride 4; "multipass", two passes of 2 lanes at
+    stride 4 with the DPG step after every pass-1 step (a box moves
+    between the passes)."""
+    if job == "batched":
+        cfg, sessions = _batched_setup(4, 60)
+        return lambda: batch.process_sessions_batched(cfg, sessions, solve_stride=4, device=cuda), 1
+    cfg = DpgConfig(
+        scan=ScanParams(num_beams=128),
+        pose_graph=PoseGraphParams(icp_max_points=32, icp_maximum_iterations=10, max_loop_closures_per_node=2),
+        dpg=DpgParams(grid_extent_cells=128, occ_grid_resolution=0.1, max_submap_nodes=4, local_reg_max_points=256),
+        capacity=CapacityParams(max_nodes=64, max_edges=256, max_priors=4),
+    )
+    def session(lane, p, box):
+        seq = dataset.simulate_sequence(dataset.make_office_world().add_box(*box), dataset.office_loop_waypoints(),
+                                        cfg.scan, step=0.25, seed=10 * lane + p, odom_noise_transl=0.02,
+                                        odom_noise_rot=0.008)
+        return seq.odometry[:48], seq.scans[:48]
+
+    boxes = ((2.0, 1.5, 1.0, 1.0), (-3.0, 1.5, 1.0, 1.0))
+    lane_passes = [[session(lane, p, box) for p, box in enumerate(boxes)] for lane in range(2)]
+    return lambda: batch.process_sessions_multipass(cfg, lane_passes, solve_stride=4, device=cuda), 2
+
+
+def _state_leaves(states):
+    return [x for f in states for x in (f if hasattr(f, "_fields") else (f,))]
+
+
+def _leaf_names(states):
+    return [f"{f}.{g}" if g else f for f, x in zip(states._fields, states)
+            for g in (x._fields if hasattr(x, "_fields") else (None,))]
+
+
+def _stage_calls(monkeypatch):
+    """Counts of batch._lanes_keyframe's calls ("steps") and of the
+    engine._top_k_ascending ("top_k") and ops.icp.icp_align ("align")
+    calls made inside them, each wrapped by its module name."""
+    calls = {"steps": 0, "top_k": 0, "align": 0}
+    inside = [False]
+    real_step = batch._lanes_keyframe
+
+    def step(*a, **k):
+        calls["steps"] += 1
+        inside[0] = True
+        try:
+            return real_step(*a, **k)
+        finally:
+            inside[0] = False
+
+    def counted(real, key):
+        def call(*a, **k):
+            calls[key] += inside[0]
+            return real(*a, **k)
+        return call
+
+    monkeypatch.setattr(batch, "_lanes_keyframe", step)
+    monkeypatch.setattr(batch.eng, "_top_k_ascending", counted(batch.eng._top_k_ascending, "top_k"))
+    monkeypatch.setattr(icp, "icp_align", counted(icp.icp_align, "align"))
+    return calls
+
+
+def _counted(run, calls):
+    """run() with the change of the graph counters and of the stage calls."""
+    c0, s0 = profiling.counters(), dict(calls)
+    states, _ = run()
+    torch.cuda.synchronize()
+    c1 = profiling.counters()
+    return states, {k: c1.get(k, 0) - c0.get(k, 0) for k in GRAPH_COUNTERS}, {k: calls[k] - s0[k] for k in calls}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("job", ["batched", "multipass"])
+def test_keyframe_graphs_replay_the_eager_step_to_the_bit(cuda, monkeypatch, job):
+    """The keyframe loop on the card with its step replayed from CUDA
+    graphs, against the same job run eagerly (the break-even step count
+    put out of reach): every field of the returned states, graph
+    included, equal to the bit; one capture per keyframe loop and a
+    replay every later step; the candidate sort and the ICP call made by
+    their module names once per step; and a second call leaves the first
+    call's states as they were."""
+    run, loops = _graph_job(cuda, job)
+    calls = _stage_calls(monkeypatch)
+    first, counts, staged = _counted(run, calls)
+    kept = [x.clone() for x in _state_leaves(first)]
+    steps = counts["batch.steps"]
+    assert steps >= 6 * loops
+    assert counts["batch.keyframe_graph_captures"] == loops
+    assert counts["batch.keyframe_graph_replays"] == steps - loops
+    assert staged == {"steps": steps, "top_k": steps, "align": steps}
+    second, _, _ = _counted(run, calls)
+    for a, b in zip(_state_leaves(first), kept, strict=True):
+        assert _same_bits(a, b)  # the second call wrote nothing of the first's
+    assert all(_same_bits(a, b) for a, b in zip(_state_leaves(first), _state_leaves(second), strict=True))
+    monkeypatch.setattr(batch, "_GRAPH_MIN_STEPS", 1 << 30)
+    eager, counts, staged = _counted(run, calls)
+    assert counts == {"batch.keyframe_graph_captures": 0, "batch.keyframe_graph_replays": 0, "batch.steps": steps}
+    assert staged == {"steps": steps, "top_k": steps, "align": steps}
+    for field, a, b in zip(_leaf_names(first), _state_leaves(first), _state_leaves(eager), strict=True):
+        assert _same_bits(a, b), field
 
 
 @pytest.mark.cuda

@@ -185,7 +185,9 @@ def test_lane_axis_dpg_step_matches_jax(scene, coverage_growth):
     """execute_dpg_lanes on four stacked lanes (batch._lanes_dpg, the
     fourth lane invalid): each valid lane within the one-lane step's bounds
     of JAX's execute_dpg on that lane, and equal to the port's one-lane
-    step; the invalid lane keeps its labels, sectors and node activity."""
+    step; execute_dpg_lanes leaves its input as it was; _lanes_dpg adopts
+    the step into the input's own tensors, and the invalid lane keeps its
+    labels, sectors and node activity."""
     jcfg = scene["cfg"]
     jcfg = dataclasses.replace(jcfg, dpg=dataclasses.replace(
         jcfg.dpg, local_registration=True, submap_coverage_growth=coverage_growth))
@@ -196,10 +198,12 @@ def test_lane_axis_dpg_step_matches_jax(scene, coverage_growth):
     fields = ("labels", "sector_active", "node_active")
     before = {k: getattr(lanes, k).clone() for k in fields}
     valid = torch.tensor([True, True, True, False])
-    adopted = tb._lanes_dpg(tcfg, lanes, valid)
     new, info = tcd.execute_dpg_lanes(tcfg, lanes)
     for k in fields:
         assert torch.equal(getattr(lanes, k), before[k]), k  # the input is left as it was
+    adopted = tb._lanes_dpg(tcfg, lanes, valid)
+    for k in fields:
+        assert getattr(adopted, k) is getattr(lanes, k), k  # adopted in place
         assert torch.equal(getattr(adopted, k)[3], before[k][3]), k
         assert torch.equal(getattr(adopted, k)[:3], getattr(new, k)[:3]), k
     assert info.num_added.shape == (4,) and info.coverage.dtype == torch.float32
