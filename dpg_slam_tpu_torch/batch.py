@@ -790,7 +790,9 @@ def batched_increment_pass(cfg: DpgConfig, states: SlamState, solve_method: str 
 
     The boundary is the span batch.boundary, its phases boundary.read,
     boundary.inputs, icp.align, boundary.rebuild and graph.solve_lanes;
-    each explicit host read adds 1 to the counter host.reads."""
+    each explicit host read adds 1 to the counter host.reads. The sweep's
+    live pairs (summed over the lanes' compactions) and its S·B slots add
+    to the counters boundary.sweep_pairs and boundary.sweep_slots."""
     with profiling.span("batch.boundary"):
         S = states.poses.shape[0]
         dev = states.poses.device
@@ -805,6 +807,8 @@ def batched_increment_pass(cfg: DpgConfig, states: SlamState, solve_method: str 
                 for s in range(S)
             ]
             B = max(idx.shape[0] for idx, _, _ in compacted)
+            profiling.count("boundary.sweep_pairs", sum(n_live for _, _, n_live in compacted))
+            profiling.count("boundary.sweep_slots", S * B)
             ci = np.zeros((S, B), np.int64)
             cv = np.zeros((S, B), bool)
             for s, (idx, val, _) in enumerate(compacted):

@@ -78,6 +78,8 @@ COUNTERS = (
     "graph.lm_iterations",  # LM loop trips of solve_batched and solve_lanes
     "graph.factorizations",  # per-lane cholesky_ex calls of the lane solves
     "host.reads",          # explicit reads of a device value on the batched paths
+    "boundary.sweep_pairs",  # live pairs of the pass boundary's ICP sweeps, summed over the lanes
+    "boundary.sweep_slots",  # pairs those sweeps hand to icp_align, padding included (lanes x common count)
 )
 
 
